@@ -1,0 +1,146 @@
+"""Build and load the Hopper kernels: ``nvcc`` into shared libraries, bound with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled on first use, for ``sm_90a``, into
+``build/repro_torch/<name>-<hash>.so`` at the root of the checkout (listed in
+``.gitignore``); the hash covers the sources and flags, so an edited kernel is
+rebuilt and an unchanged one is loaded as it is. Each source has a plain C
+interface and includes no PyTorch header, so a build takes seconds, and
+:func:`build_all` starts one ``nvcc`` per source, all at once.
+
+Every C entry point takes its pointers and the stream as ``void*`` and returns
+``cudaGetLastError()``; :func:`check` turns a non-zero return into an error.
+Nothing here runs at import: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+from typing import Dict, List, Sequence
+
+__all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "check", "library",
+           "require_cuda", "stream_handle"]
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("sketch_build", "popcount_sim", "topk_stream")
+# --fmad=false keeps the float epilogue free of contracted multiply-adds, so
+# it rounds where the plain version does; no fast math
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_VOIDP = ctypes.c_void_p
+_INT = ctypes.c_int
+_FLOAT = ctypes.c_float
+# argtypes of every C entry point, by library
+_SIGNATURES: Dict[str, Dict[str, Sequence]] = {
+    "sketch_build": {
+        # bins, B, P, n_bins, W, out, stream
+        "sketch_build": (_VOIDP, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP),
+    },
+    "popcount_sim": {
+        # a, b, na, nb, Q, C, W, measure, card, inv, n_bins, out, stream
+        "sketch_score": (_VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT, _INT, _INT, _INT,
+                         _VOIDP, _FLOAT, _INT, _VOIDP, _VOIDP),
+    },
+    "topk_stream": {
+        # a, b, na, nb, valid, Q, C, W, measure, card, inv, n_bins, k_pad,
+        # splits, tiles_per_split, partial, stream
+        "sketch_topk_partial": (_VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT, _INT,
+                                _INT, _INT, _VOIDP, _FLOAT, _INT, _INT, _INT, _INT,
+                                _VOIDP, _VOIDP),
+        # partial, Q, splits, k_pad, out_scores, out_ids, stream
+        "sketch_topk_merge": (_VOIDP, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP),
+    },
+}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home:
+        return os.path.join(home, "bin", "nvcc")
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def _inputs(name: str) -> List[pathlib.Path]:
+    return [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh"))
+
+
+def _target(name: str) -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _inputs(name):
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source unless its library exists; returns the
+    process (or None) and the library path."""
+    out = _target(name)
+    if out.exists():
+        return None, out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return (proc, tmp), out
+
+
+def _finish(name: str, started, out: pathlib.Path) -> None:
+    if started is None:
+        return
+    proc, tmp = started
+    stdout, stderr = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
+                           f"{stderr}{stdout}")
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+
+
+def build_all() -> Dict[str, pathlib.Path]:
+    """Compile every missing library, one nvcc per source in parallel."""
+    started = {n: _start(n) for n in SOURCES}
+    for n, (proc, out) in started.items():
+        _finish(n, proc, out)
+    return {n: out for n, (_, out) in started.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if missing."""
+    proc, out = _start(name)
+    _finish(name, proc, out)
+    lib = ctypes.CDLL(str(out))
+    for fn, argtypes in _SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point of ``lib`` returned a CUDA error code."""
+    if err != 0:
+        name = lib.cuda_error_string(err).decode(errors="replace")
+        raise RuntimeError(f"{what}: CUDA error {err} ({name}) at launch")
+
+
+def require_cuda(t, what: str) -> None:
+    """The kernels take CUDA tensors only: a wrapper runs a CPU tensor through
+    its plain version and hands anything else here, where it is refused."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: kernel needs a CUDA tensor, got device {t.device}")
+
+
+def stream_handle(t) -> int:
+    """PyTorch's current stream on the tensor's device, as the C side's void*."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,125 @@
+"""Public wrappers of the Hopper kernels, with the contract of ``repro.kernels.ops``.
+
+* :func:`build_sketch` — mapped bin ids -> packed words.
+* :func:`sketch_score` — (Q, C) float32 similarity, fused epilogue.
+* :func:`sketch_topk` — streaming top-k; the (Q, C) matrix is never stored.
+
+Packed words are int32 tensors holding uint32 bits; any other dtype raises
+``TypeError`` (the reference raises on non-uint32). ``a_fills``/``b_fills``
+pass precomputed fill counts through (the store's ingest-time cache); ``None``
+popcounts that side here. A tensor on the CPU runs the plain version in
+:mod:`.ref`; a CUDA tensor launches the kernel, or raises — nothing falls back.
+
+:data:`launches` counts kernel launches per wrapper (CPU calls do not count);
+``chip_smoke.py`` zeroes it before the main path and reads it after.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..core import packed as pk
+from . import popcount_sim, ref, sketch_build, topk_stream
+
+__all__ = ["MAX_K", "build_sketch", "launches", "reset_launches", "sketch_score",
+           "sketch_topk"]
+
+# largest k the streaming kernel takes (its per-query lists live in shared memory)
+MAX_K = topk_stream.MAX_K_PAD
+
+launches: Dict[str, int] = {"build_sketch": 0, "sketch_score": 0, "sketch_topk": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _check_words(*tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.dtype != torch.int32:
+            raise TypeError(f"packed sketches must be int32 words, got {t.dtype}")
+
+
+def _check_measure(measure: str) -> None:
+    if measure not in ref.MEASURES:
+        raise ValueError(f"unknown measure {measure!r}; have {ref.MEASURES}")
+
+
+def _fills(fills: Optional[torch.Tensor], words: torch.Tensor) -> torch.Tensor:
+    f = fills if fills is not None else pk.row_popcount(words)
+    return f.to(device=words.device, dtype=torch.int32).contiguous()
+
+
+def build_sketch(bins: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """Pre-mapped padded bin ids (B, P) int32 -> packed sketches (B, ceil(N/32)).
+
+    Pads (-1) and ids ``>= n_bins`` set no bit."""
+    if bins.dtype != torch.int32:
+        raise TypeError(f"bin ids must be int32, got {bins.dtype}")
+    if bins.device.type == "cpu":
+        return ref.build_sketch_ref(bins, n_bins)
+    if bins.shape[0] == 0:
+        return torch.empty((0, pk.num_words(n_bins)), dtype=torch.int32, device=bins.device)
+    out = sketch_build.launch(bins, n_bins)
+    launches["build_sketch"] += 1
+    return out
+
+
+def sketch_score(a: torch.Tensor, b: torch.Tensor, n_bins: int, measure: str = "jaccard",
+                 *, a_fills: Optional[torch.Tensor] = None,
+                 b_fills: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Packed (Q, W) x (C, W) -> (Q, C) float32 similarity (``measure="counts"``:
+    the raw AND-popcounts as float32)."""
+    _check_words(a, b)
+    _check_measure(measure)
+    if a.shape[1] != b.shape[1]:
+        raise ValueError(f"word counts differ: {a.shape} vs {b.shape}")
+    na, nb = _fills(a_fills, a), _fills(b_fills, b)
+    if a.device.type == "cpu":
+        return ref.sketch_score_ref(a, b, n_bins, measure, a_fills=na, b_fills=nb)
+    if a.shape[0] == 0 or b.shape[0] == 0:
+        return torch.zeros((a.shape[0], b.shape[0]), dtype=torch.float32, device=a.device)
+    out = popcount_sim.launch(a.contiguous(), b.contiguous(), na, nb, n_bins, measure)
+    launches["sketch_score"] += 1
+    return out
+
+
+def sketch_topk(a: torch.Tensor, b: torch.Tensor, n_bins: int, measure: str = "jaccard",
+                *, k: int, a_fills: Optional[torch.Tensor] = None,
+                b_fills: Optional[torch.Tensor] = None,
+                b_valid: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed (Q, W) x (C, W) -> top-k (scores (Q, k) float32, ids (Q, k) int32).
+
+    Rows sorted by score descending, ties to the lower id. ``b_valid`` (C,)
+    masks corpus rows out entirely; slots past the retrievable rows (k > C,
+    or masked rows) hold score -inf / id -1. On the card ``k`` is at most
+    :data:`MAX_K`."""
+    _check_words(a, b)
+    _check_measure(measure)
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if a.shape[1] != b.shape[1]:
+        raise ValueError(f"word counts differ: {a.shape} vs {b.shape}")
+    q, c = a.shape[0], b.shape[0]
+    if c == 0:  # no docs: every slot is the empty sentinel
+        return (torch.full((q, k), -math.inf, dtype=torch.float32, device=a.device),
+                torch.full((q, k), -1, dtype=torch.int32, device=a.device))
+    na, nb = _fills(a_fills, a), _fills(b_fills, b)
+    valid = None if b_valid is None else b_valid.to(device=b.device, dtype=torch.int32).contiguous()
+    if a.device.type == "cpu":
+        return ref.sketch_topk_ref(a, b, n_bins, measure, k=k, a_fills=na, b_fills=nb,
+                                   b_valid=valid)
+    if k > MAX_K:
+        raise ValueError(f"sketch_topk: k={k} exceeds the kernel's limit of {MAX_K}")
+    if q == 0:
+        return (torch.empty((0, k), dtype=torch.float32, device=a.device),
+                torch.empty((0, k), dtype=torch.int32, device=a.device))
+    out_s, out_i = topk_stream.launch(a.contiguous(), b.contiguous(), na, nb, valid,
+                                      n_bins, measure, topk_stream.next_pow2(k))
+    launches["sketch_topk"] += 1
+    return out_s[:, :k], out_i[:, :k]

@@ -1,0 +1,65 @@
+"""The Hopper kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: without a card every test here skips (the kernels have no
+interpret mode). On a machine with one:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Build bit-exact; score counts exact and measures within rtol 1e-5 / atol
+1e-6 (kernel and plain version share the epilogue's table and fused
+multiply-adds); top-k ids equal to the plain version's wherever the scores
+do not tie.
+"""
+
+import pytest
+import torch
+
+from repro_torch.core import packed as pk
+from repro_torch.hopper import ops, ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels run only there")
+    return torch.device("cuda", 0)
+
+
+def _words(gen, rows, n_bins, density, dev):
+    bits = torch.rand((rows, pk.num_words(n_bins) * 32), generator=gen, device=dev) < density
+    bits[:, n_bins:] = False
+    return pk.pack_bits(bits.to(torch.uint8))
+
+
+@pytest.mark.parametrize("b,p,n_bins", [(1, 4, 32), (7, 33, 517), (300, 870, 6017)])
+def test_build_sketch_kernel(dev, b, p, n_bins):
+    gen = torch.Generator(device=dev).manual_seed(b)
+    bins = torch.randint(-1, n_bins + 40, (b, p), generator=gen, device=dev, dtype=torch.int32)
+    before = ops.launches["build_sketch"]
+    got = ops.build_sketch(bins, n_bins)
+    assert ops.launches["build_sketch"] == before + 1
+    assert torch.equal(got, ref.build_sketch_ref(bins, n_bins))
+
+
+@pytest.mark.parametrize("q,c,n_bins", [(9, 130, 517), (256, 5000, 6017)])
+@pytest.mark.parametrize("measure", ref.MEASURES)
+def test_score_and_topk_kernels(dev, q, c, n_bins, measure):
+    gen = torch.Generator(device=dev).manual_seed(q)
+    a, b = _words(gen, q, n_bins, 0.04, dev), _words(gen, c, n_bins, 0.04, dev)
+    got, want = ops.sketch_score(a, b, n_bins, measure), ref.sketch_score_ref(a, b, n_bins, measure)
+    if measure == "counts":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    valid = (torch.rand(c, generator=gen, device=dev) > 0.1).to(torch.int32)
+    for k in (1, 10, 100):
+        sc, ix = ops.sketch_topk(a, b, n_bins, measure, k=k, b_valid=valid)
+        ws, wi = ref.sketch_topk_ref(a, b, n_bins, measure, k=k, b_valid=valid)
+        torch.testing.assert_close(sc, ws, rtol=1e-5, atol=1e-6)
+        differ = ix != wi
+        if differ.any():  # only where the two ids' scores tie
+            r = differ.nonzero(as_tuple=True)[0]
+            torch.testing.assert_close(want[r, ix[differ].long()], want[r, wi[differ].long()],
+                                       rtol=1e-5, atol=1e-6)
