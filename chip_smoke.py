@@ -17,6 +17,22 @@ Phases, each fatal on failure (nothing is caught while the run goes on):
    after; every kernel must have launched. Recall@10 against exact Jaccard
    must reach 0.3, the floor the JAX driver's test holds it to. The same
    queries are then served once more, warm, for a steady-state rate.
+2b. The mutable path, through the same entry point: ``serve`` over the same
+   corpus with ``mutate_rate=0.3`` (45,000 docs deleted and 45,000 updated
+   at 300,000, into the counting head, sealed and compacted) and the
+   distillation ladder (N // 2, N // 4). Launch counters are zeroed before
+   and read after; ``count_bins`` and ``rebucket`` must have launched.
+   Checks: recall@10 over the survivors >= 0.3 before distillation (printed
+   again after, with no floor); the mutated store's answers equal a fresh
+   append-only build over the survivors up to score ties; the distilled
+   words equal the survivors sketched fresh under the ladder's map and
+   ``ops.rebucket`` of the rows before distillation, bit for bit; after
+   16,384 new docs enter the head, mixed-width queries equal the same store
+   queried through the ``reference`` backend up to ties. It also reads the
+   recall of a fresh build at N // 4 under psi mod (N // 4), the map the
+   queries are folded to, beside the distilled store's. Then ``count_bins``
+   and ``rebucket`` are held against their plain versions (exact) at the
+   path's shapes and ragged ones, and timed beside their bounds.
 3. Each kernel held against its plain PyTorch version on the card, at the
    main path's shapes and on ragged ones: build bit-exact, score counts
    exact and measures within rtol 1e-5 / atol 1e-6, top-k equal up to
@@ -24,8 +40,10 @@ Phases, each fatal on failure (nothing is caught while the run goes on):
    its plain version and its bound on this card.
 
 The line before the last lists the kernels as JSON, the one before it the
-card; the last line is the device summary. Without a card, or without the
-repository beside this file, it exits non-zero and prints no result.
+card; before those, a ``{"serve": ...}`` and a ``{"mutable": ...}`` line
+with the end-to-end readings; the last line is the device summary. Without a
+card, or without the repository beside this file, it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -39,6 +57,8 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
@@ -50,6 +70,12 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
 RTOL, ATOL = 1e-5, 1e-6
+# the kernels of the append-only main path (phase 2); phase 2b adds
+# count_bins and rebucket
+MAIN_PATH_KERNELS = ("build_sketch", "sketch_score", "sketch_topk")
+# the reference backend's estimator (PyTorch's float32 log, unfused) against
+# the kernels' epilogue: the oracle tolerance of tests/test_kernels.py
+RTOL_REF, ATOL_REF = 2e-3, 1e-3
 
 
 def fail(msg: str) -> None:
@@ -79,7 +105,8 @@ def bound_ms(n_bytes: float, n_ops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_topk(torch, got, want, truth, what: str) -> float:
+def check_topk(torch, got, want, truth, what: str, rtol: float = RTOL,
+               atol: float = ATOL) -> float:
     """Tie-aware top-k check: scores within tolerance slot for slot; ids equal
     except where both ids' scores in ``truth`` (Q, C) tie within tolerance.
     Returns the largest score difference."""
@@ -90,16 +117,241 @@ def check_topk(torch, got, want, truth, what: str) -> float:
     if not torch.equal(finite, torch.isfinite(gs)) or not torch.equal(gi[~finite], wi[~finite]):
         fail(f"{what}: empty slots differ")
     err = float((gs[finite] - ws[finite]).abs().max()) if finite.any() else 0.0
-    if not torch.allclose(gs[finite], ws[finite], rtol=RTOL, atol=ATOL):
+    if not torch.allclose(gs[finite], ws[finite], rtol=rtol, atol=atol):
         fail(f"{what}: scores differ by up to {err}")
     bad = (gi != wi) & finite
     if bad.any():
         r, _ = bad.nonzero(as_tuple=True)
         tg = truth[r, gi[bad].long()]
         tw = truth[r, wi[bad].long()]
-        if not torch.all((tg - tw).abs() <= ATOL + RTOL * tw.abs()):
+        if not torch.all((tg - tw).abs() <= atol + rtol * tw.abs()):
             fail(f"{what}: {int(bad.sum())} ids differ and are not score ties")
     return err
+
+
+def serve_warm(torch, engine, queries, now) -> float:
+    """Queries per second of serving ``queries`` again in batches of 256."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, len(queries), 256):
+        engine.query(queries[s : s + 256], 10, now=now)
+    torch.cuda.synchronize()
+    return len(queries) / (time.perf_counter() - t0)
+
+
+def view_truth(torch, engine, queries, now):
+    """(Q, next_id) float32 plain-version scores of every live doc, each
+    scored at its own view's width from the folded query sketch; -inf for
+    ids that are not live. The tie truth of a mixed-width store."""
+    from repro_torch.engine import ReferenceBackend
+
+    ref_be, cfg = ReferenceBackend(), engine.cfg
+    qs = ref_be.sketch(cfg, engine.store.mapping, queries)
+    truth = torch.full((len(queries), engine.store.next_id), float("-inf"),
+                       device=queries.device)
+    for v in engine.store.segment_views(now):
+        nb = v.n_bins or cfg.n_bins
+        s = ref_be.score(ref_be.rebucket(qs, cfg.n_bins, nb), v.sketches, nb, engine.measure,
+                         corpus_fills=v.fills)
+        ids = (v.ids.long() if v.ids is not None
+               else torch.arange(s.shape[1], device=s.device))
+        live = v.valid != 0 if v.valid is not None else torch.ones_like(ids, dtype=torch.bool)
+        truth[:, ids[live]] = s[:, live]
+    return truth
+
+
+def mutable_phase(torch, dev, spec, n_bins: int):
+    """Phase 2b: the mutable path through ``serve``, its checks, and the
+    count_bins / rebucket kernels against their plain versions. Returns the
+    kernels' JSON rows and the end-to-end readings."""
+    from repro_torch.core import BinSketchConfig, binsketch, counting, packed as pk
+    from repro_torch.data.synthetic import generate_corpus
+    from repro_torch.engine import CudaBackend, ReferenceBackend, SketchEngine
+    from repro_torch.hopper import ops, ref
+    from repro_torch.launch.serve import recall_at, serve
+
+    n1, n2 = n_bins // 2, n_bins // 4
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    out = serve(spec, queries=1024, topk=10, rho=0.05, batch=256, ingest_batch=16384,
+                backend="cuda", device=dev, mutate_rate=0.3, distill=(n1, n2))
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    peak_bytes = torch.cuda.max_memory_allocated(dev)
+    print(f"mutable path launches: {launches}")
+    for name in ("count_bins", "rebucket"):
+        if launches[name] < 1:
+            fail(f"kernel {name} never launched on the mutable path")
+    engine, pre = out["engine"], out["pre_distill"]
+    cfg, mapping, now = engine.cfg, engine.store.mapping, out["serve_now"]
+    if pre["recall"] < 0.3:
+        fail(f"recall@10 over the survivors before distillation {pre['recall']:.3f} below 0.3")
+    print(f"recall@10 over survivors: {pre['recall']:.4f} before distillation, "
+          f"{out['recall']:.4f} after (no floor)")
+
+    # the mutated store, before distillation, against a fresh append-only build
+    surv_ids, surv_rows = out["surv_ids"], out["surv_rows"]
+    fresh = SketchEngine.build(cfg, mapping, backend="cuda", planner=engine.planner,
+                               capacity=len(surv_ids))
+    fresh.add(surv_rows, batch=16384)
+    queries = torch.from_numpy(out["queries"]).to(dev)
+    f_s, f_i = [], []
+    for s in range(0, len(queries), 256):
+        sc, ix = fresh.query(queries[s : s + 256], 10)
+        f_s.append(sc)
+        f_i.append(ix)
+    truth = fresh.score_all(queries)
+    surv_dev = torch.from_numpy(surv_ids).to(dev)
+    pre_ids = torch.from_numpy(pre["ids"]).to(dev).long()
+    pre_pos = torch.where(pre_ids >= 0, torch.searchsorted(surv_dev, pre_ids.clamp_min(0)),
+                          pre_ids)
+    if not torch.equal(surv_dev[pre_pos.clamp_min(0)][pre_ids >= 0], pre_ids[pre_ids >= 0]):
+        fail("the mutated store served an id that is not a survivor")
+    check_topk(torch, (torch.from_numpy(pre["scores"]).to(dev), pre_pos),
+               (torch.cat(f_s), torch.cat(f_i).long()), truth,
+               "mutated store vs a fresh build over the survivors")
+    del fresh, truth
+
+    # distilled words against fresh sketches and against the kernel's fold
+    (seg,), (seg_pre,) = engine.store.sealed, pre["segments"]
+    if seg.n_bins != n2 or seg_pre.n_bins is not None:
+        fail(f"distilled widths {seg.n_bins} / {seg_pre.n_bins}, expected {n2} / base")
+    keep = torch.from_numpy(seg_pre.valid).to(dev)
+    rows_pre = seg_pre.sketches[keep]
+    if not (np.array_equal(seg.ids, surv_ids) and seg.valid.all()):
+        fail("the distilled segment does not hold exactly the survivors")
+    cuda_be = CudaBackend()
+
+    def fresh_words(n_new, psi_new):
+        cfg_new = BinSketchConfig(d=cfg.d, n_bins=n_new)
+        return torch.cat([cuda_be.sketch(cfg_new, psi_new,
+                                         torch.from_numpy(surv_rows[s : s + 16384]).to(dev))
+                          for s in range(0, len(surv_rows), 16384)])
+
+    tier1 = ops.rebucket(rows_pre, n_bins, n1)
+    if not torch.equal(tier1, fresh_words(n1, mapping % n1)):
+        fail(f"ops.rebucket to N'={n1} differs from the survivors sketched under psi mod N'")
+    ladder = fresh_words(n2, (mapping % n1) % n2)
+    if not torch.equal(seg.sketches, ladder):
+        fail(f"distilled words at N'={n2} differ from the survivors sketched under "
+             f"(psi mod {n1}) mod {n2}")
+    if not torch.equal(seg.sketches, ops.rebucket(tier1, n1, n2)):
+        fail("distilled words differ from ops.rebucket of the rows before distillation")
+    if not torch.equal(seg.fills, pk.row_popcount(seg.sketches)):
+        fail("distilled fills differ from the popcount of their words")
+    direct = torch.equal(seg.sketches, fresh_words(n2, mapping % n2))
+    print(f"distilled words: bit-equal to fresh sketches at N'={n1} (psi mod {n1}) and at "
+          f"N'={n2} (the ladder's (psi mod {n1}) mod {n2}), and to ops.rebucket; equal "
+          f"to psi mod {n2} directly: {direct}")
+    # what the ladder's map costs: the same survivors sketched at N'=n2 under
+    # psi mod n2, the map the queries are folded to, and served fresh
+    consistent = SketchEngine.build(BinSketchConfig(d=cfg.d, n_bins=n2), mapping % n2,
+                                    backend="cuda", planner=engine.planner,
+                                    capacity=len(surv_ids))
+    consistent.add(surv_rows, batch=16384)
+    pos = torch.cat([consistent.query(queries[s : s + 256], 10)[1]
+                     for s in range(0, len(queries), 256)]).cpu().numpy()
+    recall_consistent = recall_at(surv_ids[pos], out["truth_ids"], 10)
+    print(f"recall@10 of a fresh build at N'={n2} under psi mod {n2}: "
+          f"{recall_consistent:.4f} (the distilled store, served: {out['recall']:.4f})")
+    del consistent
+    warm_qps = serve_warm(torch, engine, queries, now)
+    # one query chunk's top-k over the sealed survivors, before and after
+    # the ladder: the kernel time behind the two serving rates
+    q256 = queries[:256]
+    qs = cuda_be.sketch(cfg, mapping, q256)
+    topk_ms = {
+        "base": cuda_ms(torch, lambda: ops.sketch_topk(qs, rows_pre, n_bins, k=10,
+                                                       b_fills=seg_pre.fills), 5),
+        "distilled": cuda_ms(torch, lambda: ops.sketch_topk(
+            ops.rebucket(qs, n_bins, n2), seg.sketches, n2, k=10, b_fills=seg.fills), 5),
+    }
+
+    # mixed width: new docs in the base-width head beside the N // 4 segment
+    new_rows, _ = generate_corpus(spec, seed=2)
+    engine.add(new_rows[:16384], batch=16384, now=now)
+    got = engine.query(q256, 10, now=now)
+    want = SketchEngine(engine.store, ReferenceBackend(), engine.measure,
+                        engine.planner).query(q256, 10, now=now)
+    mixed_err = check_topk(torch, got, want, view_truth(torch, engine, q256, now),
+                           "mixed-width query vs the reference backend", RTOL_REF, ATOL_REF)
+    print(f"mixed width: {engine.store.head.size} head rows at N={n_bins} beside "
+          f"{seg.n_rows} sealed rows at N'={n2} agree with the reference backend "
+          f"(rtol {RTOL_REF} / atol {ATOL_REF}, ids up to ties; largest difference {mixed_err})")
+
+    # ------------------------------------- count_bins / rebucket vs plain
+    corpus_rows = torch.from_numpy(out["corpus"][:16384]).to(dev)
+    bins = binsketch.map_indices(cfg, mapping, counting.dedup_padded(corpus_rows))
+    if not torch.equal(ops.count_bins(bins, n_bins), ref.count_bins_ref(bins, n_bins)):
+        fail("count_bins differs from its plain version at the ingest shape")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for b_, p_, n_ in [(1, 4, 32), (7, 33, 517), (300, 1000, 70_000), (64, 870, n_bins)]:
+        lens = torch.randint(0, p_ + 1, (b_, 1), generator=gen, device=dev)
+        rb = torch.randint(0, n_ + 40, (b_, p_), generator=gen, device=dev, dtype=torch.int32)
+        rb = torch.where(torch.arange(p_, device=dev)[None, :] < lens, rb, -1).to(torch.int32)
+        rb[0] = -1  # a row of pads only
+        if not torch.equal(ops.count_bins(rb, n_), ref.count_bins_ref(rb, n_)):
+            fail(f"count_bins differs at {(b_, p_, n_)}")
+    for n_new in (n1, n2):
+        if not torch.equal(ops.rebucket(qs, n_bins, n_new), ref.rebucket_ref(qs, n_bins, n_new)):
+            fail(f"rebucket differs from its plain version at (256, {cfg.n_words}) -> {n_new}")
+    for b_, n_, n_new in [(13, 512, 100), (9, 101, 33), (5, 517, 1), (5, 517, 32),
+                          (3, 33, 32), (64, n_bins, 7)]:
+        bits = torch.rand((b_, pk.num_words(n_) * 32), generator=gen, device=dev) < 0.3
+        words = pk.pack_bits(bits.to(torch.uint8))  # bits >= N set too: they must not leak
+        if not torch.equal(ops.rebucket(words, n_, n_new), ref.rebucket_ref(words, n_, n_new)):
+            fail(f"rebucket differs at {(b_, n_, n_new)}")
+        if not torch.equal(ops.rebucket(words, n_, n_new), pk.fold_packed(words, n_, n_new)):
+            fail(f"rebucket differs from fold_packed at {(b_, n_, n_new)}")
+    torch.cuda.synchronize()
+    print("count_bins and rebucket vs plain versions: all agree (exact)")
+
+    bsz, p = bins.shape
+    keep_b = (bins >= 0) & (bins < n_bins)
+    safe = torch.where(keep_b, bins, 0).long()
+    ones = keep_b.to(torch.int32)
+    lib_ms = cuda_ms(torch, lambda: torch.zeros((bsz, n_bins), dtype=torch.int32,
+                                                device=dev).scatter_add_(1, safe, ones), 10)
+    qn, w, w1 = qs.shape[0], cfg.n_words, pk.num_words(n1)
+    chunks = -(-n_bins // n1)
+    rows = []
+    for name, source, replaces, ms, plain_ms, n_bytes, n_ops, lib in [
+        ("count_bins", "src/repro_torch/hopper/csrc/count_bins.cu",
+         "src/repro/kernels/count_update.py:49",
+         cuda_ms(torch, lambda: ops.count_bins(bins, n_bins), 20),
+         cuda_ms(torch, lambda: ref.count_bins_ref(bins, n_bins), 5),
+         4.0 * bsz * p + 4.0 * bsz * n_bins, float(bsz * p), lib_ms),
+        ("rebucket", "src/repro_torch/hopper/csrc/rebucket.cu",
+         "src/repro/kernels/rebucket.py:64",
+         cuda_ms(torch, lambda: ops.rebucket(qs, n_bins, n1), 50),
+         cuda_ms(torch, lambda: ref.rebucket_ref(qs, n_bins, n1), 10),
+         4.0 * qn * (w + w1), 2.0 * qn * w1 * chunks, None),
+    ]:
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches[name], "max_abs_err": 0.0, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib})
+    print(f"shapes: count_bins {tuple(bins.shape)} -> (B, N={n_bins}); rebucket "
+          f"({qn}, {w}) -> N'={n1} ({w1} words, {chunks} chunks); library_ms of count_bins: "
+          "torch.zeros + scatter_add_ on pre-masked ids; rebucket: none (no single PyTorch "
+          "call folds packed bits)")
+    readings = {
+        "n_docs": out["n_docs"], "n_bins": n_bins, "widths": [n1, n2],
+        "n_deleted": out["n_deleted"], "n_updated": out["n_updated"],
+        "live": int(len(surv_ids)), "ingest_docs_per_s": out["docs_per_s"],
+        "mutate_s": out["mutate_s"], "mutations_per_s": out["mutations_per_s"],
+        "distill_s": out["distill_s"],
+        "first_queries_per_s": out["queries_per_s"], "warm_queries_per_s": warm_qps,
+        "pre_distill_first_queries_per_s": pre["queries_per_s"],
+        "recall_before_distill": pre["recall"], "recall_after_distill": out["recall"],
+        "recall_fresh_at_n2_direct_map": recall_consistent,
+        "bytes_per_doc": out["bytes_per_doc"], "base_bytes_per_doc": cfg.n_words * 4,
+        "head_counter_bytes": 4 * out["n_docs"] * n_bins, "peak_device_bytes": peak_bytes,
+        "topk_chunk_ms_base": topk_ms["base"], "topk_chunk_ms_distilled": topk_ms["distilled"],
+        "mixed_max_abs_err": mixed_err,
+    }
+    return rows, readings
 
 
 def main(argv=None) -> int:
@@ -156,8 +408,8 @@ def main(argv=None) -> int:
     top_vals = torch.sort(s_all, dim=1, descending=True).values[:, :10]
     if not torch.allclose(torch.gather(s_all, 1, ids64), top_vals, rtol=RTOL, atol=ATOL):
         fail("score_all disagrees with the served top-10")
-    for name, n in launches.items():
-        if n < 1:
+    for name in MAIN_PATH_KERNELS:
+        if launches[name] < 1:
             fail(f"kernel {name} never launched on the main path")
     # the same queries again, with every library loaded and every kernel
     # launched once: serve's own reading includes those first-use costs
@@ -168,6 +420,9 @@ def main(argv=None) -> int:
     out["warm_queries_per_s"] = len(out["queries"]) / (time.perf_counter() - t0)
     if not torch.equal(warm_ids.cpu(), torch.from_numpy(out["ids"][-len(warm_ids):])):
         fail("a repeated query batch returned other ids")
+
+    # ---------------------------------------------------------- mutable path
+    mut_rows, mut = mutable_phase(torch, dev, spec, out["n_bins"])
 
     # ------------------------------------------ kernels vs plain, main shapes
     cfg, store = engine.cfg, engine.store
@@ -255,6 +510,7 @@ def main(argv=None) -> int:
         cuda_ms(torch, lambda: ref.sketch_topk_ref(qs, corpus, n, "jaccard", k=10,
                                                    a_fills=qf, b_fills=fills), 2),
         4.0 * (qn + cn) * (w + 1) + 8.0 * qn * 10, pair_ops, topk_err)
+    rows += mut_rows
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.2f} ms, bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']}, {r['launches']} launches)")
@@ -263,6 +519,7 @@ def main(argv=None) -> int:
     print(json.dumps({"serve": {k: out[k] for k in ("n_docs", "n_bins", "n_words", "build_s",
                                                   "docs_per_s", "serve_s", "queries_per_s",
                                                   "warm_queries_per_s", "recall")}}))
+    print(json.dumps({"mutable": mut}))
 
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -4,18 +4,21 @@ The PyTorch counterpart of the JAX package ``repro``. It imports ``torch`` and
 ``numpy`` and nothing of ``repro``: the two packages meet only in the tests,
 which feed both the same numpy inputs and hold this one to the other's result.
 
-Layout (one slice of the JAX package so far: append-only serving):
+Layout (two slices of the JAX package so far: append-only serving, and the
+mutable arm with distillation and mixed-width queries):
 
 | piece | module | role |
 |---|---|---|
 | packed words | core/packed.py | int32 words holding uint32 bits, SWAR popcount |
 | BinSketch | core/binsketch.py | config, Ψ map, scatter sketch construction |
 | estimators | core/estimators.py | Algorithms 1-4 from fill and AND counts |
+| counting sketch | core/counting.py | per-bin occupancy counters of the mutable head |
 | corpora | data/synthetic.py | the numpy generator, same seed -> same rows |
-| kernels | hopper/ | CUDA kernels for build, score and streaming top-k, with plain twins |
-| engine | engine/ | backends, planner, append-only store, SketchEngine |
+| kernels | hopper/ | CUDA kernels for build, score, streaming top-k, occupancy count and width fold, with plain twins |
+| engine | engine/ | backends, planner, append-only and segmented stores, SketchEngine |
 | ground truth | obs/probe.py | exact Jaccard top-k |
-| driver | launch/serve.py | the paper's ranking experiment as a service |
+| driver | launch/serve.py | the paper's ranking experiment as a service, append-only or mutable |
+| state from the reference | convert.py | Ψ tables, packed words and whole stores of the JAX package |
 
 Every entry point takes ``device`` and defaults to ``"cuda"``; without a card
 that default raises (:func:`resolve_device`). The CPU runs only when a caller

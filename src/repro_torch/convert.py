@@ -5,6 +5,7 @@ converts with ``np.asarray``) and return the port's. Packed uint32 words become
 int32 through ``.view(np.int32)``: the bits, and so every value, stay as they
 were. ``torch`` cannot reproduce ``jax.random``, so a Ψ table drawn by
 ``repro.core.make_mapping`` reaches the port through :func:`mapping_from_reference`.
+A mutable store crosses whole through :func:`segmented_store_from_reference`.
 """
 
 from __future__ import annotations
@@ -13,7 +14,9 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .core import packed as pk
 from .core.binsketch import BinSketchConfig
+from .engine.segments import _HEAD, SealedSegment, SegmentedStore
 from .engine.store import SketchStore
 
 __all__ = [
@@ -21,6 +24,7 @@ __all__ = [
     "mapping_from_reference",
     "packed_from_reference",
     "packed_to_reference",
+    "segmented_store_from_reference",
     "store_from_reference",
 ]
 
@@ -65,3 +69,54 @@ def store_from_reference(cfg: BinSketchConfig, mapping: torch.Tensor, np_uint32_
         raise ValueError(f"sketches {tuple(sketches.shape)} do not fit fills "
                          f"{tuple(fills.shape)} at {cfg.n_words} words")
     return SketchStore(cfg, mapping.to(dev), sketches, fills, int(fills.shape[0]))
+
+
+def segmented_store_from_reference(tree: dict, aux: dict, device="cuda") -> SegmentedStore:
+    """A reference ``SegmentedStore.checkpoint_tree()`` as the port's store.
+
+    ``tree`` is the pytree with every leaf already a numpy array, ``aux`` the
+    metadata dict. Head counters (u16 there) become int32, packed words keep
+    their bits, distilled segments keep their width (``sealed_n_bins``), and
+    the location map and live count are rebuilt from the tombstone bitmaps,
+    as the reference's ``restore`` does. The port has no banded prefilter
+    yet, so a store that carries a band policy is refused."""
+    if aux.get("kind") != "segmented_store":
+        raise ValueError(f"not a SegmentedStore snapshot: {aux.get('kind')!r}")
+    if aux.get("band_policy") is not None:
+        raise ValueError("the store carries a band policy; the port has no banded "
+                         "prefilter to serve it")
+    dev = resolve_device(device)
+    cfg = config_from_reference(**aux["cfg"])
+    mapping = mapping_from_reference(tree["mapping"], cfg, dev)
+    hr = int(aux["head_rows"])
+    store = SegmentedStore.create(cfg, mapping, capacity=max(hr, 1),
+                                  seal_rows=aux["seal_rows"], ttl=aux.get("ttl"))
+    store.next_id = int(aux["next_id"])
+
+    def ints(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.int32).copy()).to(dev)
+
+    ht, h = tree["head"], store.head
+    h.counters[:hr] = ints(ht["counters"]).reshape(hr, cfg.n_bins)
+    h.packed[:hr] = packed_from_reference(ht["packed"], dev).reshape(hr, cfg.n_words)
+    h.fills[:hr] = ints(ht["fills"])
+    h.sat_dev[:hr] = torch.from_numpy(np.asarray(ht["saturated"], bool).copy()).to(dev)
+    h.ids[:hr] = np.asarray(ht["ids"], np.int64)
+    h.valid[:hr] = np.asarray(ht["valid"], bool)
+    h.born[:hr] = np.asarray(aux["head_born"], np.float64)
+    h.exact[:hr] = np.asarray(ht["exact"], bool)
+    h.size = hr
+    h.is_sorted = bool(np.all(np.diff(h.ids[:hr]) > 0))
+    widths = aux.get("sealed_n_bins") or [None] * len(tree["sealed"])
+    for st, born, nb in zip(tree["sealed"], aux["sealed_born"], widths):
+        n_words = pk.num_words(nb) if nb else cfg.n_words
+        store.sealed.append(SealedSegment(
+            packed_from_reference(st["sketches"], dev).reshape(-1, n_words),
+            ints(st["fills"]), np.array(st["ids"], np.int64), np.array(st["valid"], bool),
+            np.asarray(born, np.float64), n_bins=int(nb) if nb else None))
+    for seg_i in range(len(store.sealed)):
+        store._index_segment(seg_i)
+    rows = np.nonzero(h.valid[:hr])[0]
+    store._loc.update(zip(h.ids[rows].tolist(), ((_HEAD, int(r)) for r in rows)))
+    store._n_live = len(store._loc)
+    return store

@@ -1,6 +1,7 @@
-"""repro_torch.core — packed words, BinSketch construction and its estimators."""
+"""repro_torch.core — packed words, BinSketch construction, its estimators and
+the counting variant of the mutable head."""
 
-from . import estimators, packed  # noqa: F401
+from . import counting, estimators, packed  # noqa: F401
 from .binsketch import (  # noqa: F401
     BinSketchConfig,
     make_mapping,

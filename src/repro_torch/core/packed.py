@@ -20,6 +20,9 @@ __all__ = [
     "popcount",
     "row_popcount",
     "and_popcount_pairwise",
+    "segment_or",
+    "fold_packed",
+    "or_rows",
 ]
 
 _M1 = 0x55555555
@@ -90,3 +93,66 @@ def and_popcount_pairwise(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         both = a[:, None, :] & b[None, lo : lo + chunk, :]
         out[:, lo : lo + chunk] = popcount(both).sum(dim=-1, dtype=torch.int32)
     return out
+
+
+def _or_reduce_bits(bit_of, out_shape, device) -> torch.Tensor:
+    """OR of 32-bit words assembled one bit position at a time: ``bit_of(b)``
+    returns the reduced {0,1} bit ``b`` (int64), and the words are rebuilt
+    from the 32 of them. No (rows, W, 32) unpacked intermediate is built."""
+    acc = torch.zeros(out_shape, dtype=torch.int64, device=device)
+    for b in range(32):
+        acc |= bit_of(b) << b
+    return _to_int32_bits(acc)
+
+
+def segment_or(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """OR-reduce rows of ``data`` (B, ...) int32 words into (num_segments, ...).
+
+    The bitwise-OR ``segment_max`` of ``repro.core.packed.segment_or``:
+    each bit position is reduced with a scatter-max over the segment ids, so
+    memory stays O(B·W). Empty segments come back all-zero (the sketch of
+    the empty union)."""
+    out_shape = (int(num_segments),) + tuple(data.shape[1:])
+    if data.shape[0] == 0:
+        return torch.zeros(out_shape, dtype=torch.int32, device=data.device)
+    wide = data.to(torch.int64)
+    ids = torch.as_tensor(segment_ids, device=data.device).to(torch.int64)
+    ids = ids.reshape((-1,) + (1,) * (data.ndim - 1)).expand_as(wide)
+
+    def bit_of(b):
+        zero = torch.zeros(out_shape, dtype=torch.int64, device=data.device)
+        return zero.scatter_reduce_(0, ids, (wide >> b) & 1, "amax")
+
+    return _or_reduce_bits(bit_of, out_shape, data.device)
+
+
+def fold_packed(packed: torch.Tensor, n_bins: int, n_bins_new: int) -> torch.Tensor:
+    """Re-bucket packed rows from ``n_bins`` to ``n_bins_new`` bins by
+    OR-folding bin ``j`` into bin ``j mod n_bins_new``.
+
+    ``fold(sketch_N(x)) == sketch_N'(x)`` under the derived map
+    ``pi'(i) = pi(i) mod N'`` (``repro.core.packed.fold_packed``). Bits at or
+    above ``n_bins`` in the last word are ignored."""
+    if n_bins_new > n_bins:
+        raise ValueError(f"cannot fold {n_bins} bins up to {n_bins_new}")
+    if n_bins_new == n_bins:
+        return packed
+    bits = unpack_bits(packed, n_bins)
+    n_chunks = -(-n_bins // n_bins_new)
+    pad = n_chunks * n_bins_new - n_bins
+    if pad:
+        bits = torch.nn.functional.pad(bits, (0, pad))
+    folded = bits.reshape(bits.shape[:-1] + (n_chunks, n_bins_new)).amax(dim=-2)
+    return pack_bits(folded)
+
+
+def or_rows(packed: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Bitwise-OR reduce packed words along ``axis`` (the sketch of the union:
+    BinSketch is an OR-homomorphism). An empty axis reduces to zero words."""
+    axis = axis % packed.ndim
+    out_shape = packed.shape[:axis] + packed.shape[axis + 1:]
+    if packed.shape[axis] == 0:
+        return torch.zeros(out_shape, dtype=torch.int32, device=packed.device)
+    wide = packed.to(torch.int64)
+    return _or_reduce_bits(lambda b: ((wide >> b) & 1).amax(dim=axis), out_shape,
+                           packed.device)

@@ -1,25 +1,30 @@
-"""repro_torch.engine — append-only sketch serving.
+"""repro_torch.engine — sketch serving over append-only and mutable stores.
 
 | piece | file | role |
 |---|---|---|
 | SketchStore | store.py | packed corpus, incremental ingest, fill cache |
+| SegmentedStore | segments.py | counting head, sealed segments, tombstones, compaction, distillation |
 | Backend registry | backends.py | reference / cuda behind one name |
 | QueryPlanner | planner.py | ragged batches -> bounded set of padded shapes |
-| SketchEngine | engine.py | build + add + score_all + query |
+| SketchEngine | engine.py | build + add + lifecycle verbs + score_all + mixed-width query |
 """
 
 from .backends import Backend, CudaBackend, ReferenceBackend, available_backends, get_backend
 from .engine import SketchEngine, merge_segment_topk
 from .planner import QueryChunk, QueryPlanner
+from .segments import DistillPolicy, SealedSegment, SegmentedStore
 from .store import SegmentView, SketchStore
 
 __all__ = [
     "Backend",
     "CudaBackend",
+    "DistillPolicy",
     "QueryChunk",
     "QueryPlanner",
     "ReferenceBackend",
+    "SealedSegment",
     "SegmentView",
+    "SegmentedStore",
     "SketchEngine",
     "SketchStore",
     "available_backends",

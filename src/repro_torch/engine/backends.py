@@ -1,8 +1,9 @@
 """Backend protocol + registry for the sketch engine.
 
 A backend owns the data path behind one name — *sketch* (construction),
-*score* (AND-popcount + estimator epilogue) and *topk* (score -> k best per
-query):
+*count* (the counting head's per-bin occupancy), *score* (AND-popcount +
+estimator epilogue), *topk* (score -> k best per query) and *rebucket* (the
+N -> N' fold that meets distilled segments):
 
   * ``reference``     plain PyTorch (scatter build, materialized scoring, a
                       chunked top-k) — the counterpart of the JAX ``oracle``.
@@ -23,7 +24,7 @@ from typing import Callable, Dict, Optional, Protocol, Tuple
 
 import torch
 
-from ..core import binsketch, estimators, packed as pk
+from ..core import binsketch, counting, estimators, packed as pk
 from ..hopper import ops, ref
 
 __all__ = ["Backend", "ReferenceBackend", "CudaBackend", "available_backends",
@@ -40,6 +41,12 @@ class Backend(Protocol):
         """(B, P) padded sparse rows -> (B, W) packed int32 words."""
         ...
 
+    def count(self, cfg: binsketch.BinSketchConfig, mapping: torch.Tensor,
+              idx: torch.Tensor) -> torch.Tensor:
+        """(B, P) padded sparse rows -> (B, N) int32 per-bin occupancy;
+        ``counters > 0`` packs to exactly what :meth:`sketch` returns."""
+        ...
+
     def score(self, q: torch.Tensor, corpus: torch.Tensor, n_bins: int, measure: str, *,
               q_fills: Optional[torch.Tensor] = None,
               corpus_fills: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -53,6 +60,12 @@ class Backend(Protocol):
              corpus_valid: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Packed (Q, W) x (C, W) -> (scores (Q, k), ids (Q, k) int32)."""
+        ...
+
+    def rebucket(self, packed: torch.Tensor, n_bins: int, n_bins_new: int) -> torch.Tensor:
+        """Packed (B, W) rows at ``n_bins`` -> (B, W') rows at the smaller
+        ``n_bins_new``, bin ``j`` ORed into ``j mod n_bins_new``: the sketch
+        under ``pi mod n_bins_new``."""
         ...
 
 
@@ -81,6 +94,9 @@ class ReferenceBackend:
     def sketch(self, cfg, mapping, idx):
         return binsketch.sketch_indices(cfg, mapping, idx)
 
+    def count(self, cfg, mapping, idx):
+        return counting.count_indices_dense(cfg, mapping, idx)
+
     def score(self, q, corpus, n_bins, measure, *, q_fills=None, corpus_fills=None):
         return estimators.pairwise_similarity(
             q, corpus, n_bins, measure, a_fills=q_fills, b_fills=corpus_fills)
@@ -107,6 +123,9 @@ class ReferenceBackend:
         # parts are in ascending id order: a stable sort keeps the lower id first
         return ref.select_topk(torch.cat(parts_s, dim=1), torch.cat(parts_i, dim=1), k)
 
+    def rebucket(self, packed, n_bins, n_bins_new):
+        return pk.fold_packed(packed, n_bins, n_bins_new)
+
 
 class CudaBackend:
     """The Hopper kernels (the JAX package's ``pallas`` backend).
@@ -125,6 +144,10 @@ class CudaBackend:
         bins = binsketch.map_indices(cfg, mapping, idx)
         return ops.build_sketch(bins, cfg.n_bins)
 
+    def count(self, cfg, mapping, idx):
+        bins = binsketch.map_indices(cfg, mapping, idx)
+        return ops.count_bins(bins, cfg.n_bins)
+
     def score(self, q, corpus, n_bins, measure, *, q_fills=None, corpus_fills=None):
         return ops.sketch_score(q, corpus, n_bins, measure,
                                 a_fills=q_fills, b_fills=corpus_fills)
@@ -138,6 +161,9 @@ class CudaBackend:
             return _sorted_topk(s, k, corpus_valid)
         return ops.sketch_topk(q, corpus, n_bins, measure, k=int(k), a_fills=q_fills,
                                b_fills=corpus_fills, b_valid=corpus_valid)
+
+    def rebucket(self, packed, n_bins, n_bins_new):
+        return ops.rebucket(packed, int(n_bins), int(n_bins_new))
 
 
 _REGISTRY: Dict[str, Callable[[], Backend]] = {

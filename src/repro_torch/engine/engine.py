@@ -1,9 +1,12 @@
-"""SketchEngine — build and serve over an append-only store through one backend.
+"""SketchEngine — build and serve over a sketch store through one backend.
 
 The paper's §IV-B ranking experiment as a service, composed of:
 
   * :class:`~repro_torch.engine.store.SketchStore` — packed corpus,
-    incremental ingest, ingest-time fill-count cache;
+    incremental ingest, ingest-time fill-count cache — or, with
+    ``mutable=True``, :class:`~repro_torch.engine.segments.SegmentedStore`:
+    counting head plus sealed segments, with delete, update, seal, compact,
+    expiry and distillation;
   * a :class:`~repro_torch.engine.backends.Backend` — the sketch, score and
     top-k kernels behind one name;
   * a :class:`~repro_torch.engine.planner.QueryPlanner` — ragged query
@@ -11,9 +14,11 @@ The paper's §IV-B ranking experiment as a service, composed of:
 
 ``query`` streams: each planner chunk goes through ``Backend.topk`` per
 segment view, so on the ``cuda`` backend at serving sizes no (Q, C) score
-matrix is ever stored. This slice serves an append-only store only: the
-mutable lifecycle, prefilter, placement and telemetry of the JAX engine come
-in later slices.
+matrix is ever stored. Serving is mixed-width: a distilled segment lives at
+a smaller width N', and the chunk's query sketches are folded to N' once per
+distinct width (``Backend.rebucket``) before that view is scored. The
+prefilter, placement, background jobs and telemetry of the JAX engine come in
+later slices.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from ..core import binsketch
 from . import backends as backends_mod
 from .backends import Backend
 from .planner import QueryPlanner
+from .segments import DistillPolicy, SegmentedStore
 from .store import SegmentView, SketchStore, as_index_tensor
 
 __all__ = ["SketchEngine", "merge_segment_topk"]
@@ -64,14 +70,27 @@ class SketchEngine:
     @classmethod
     def build(cls, cfg: binsketch.BinSketchConfig, mapping: torch.Tensor,
               corpus_idx=None, *, backend=None, measure: str = "jaccard",
-              planner: Optional[QueryPlanner] = None,
-              capacity: int = 1024) -> "SketchEngine":
+              planner: Optional[QueryPlanner] = None, capacity: int = 1024,
+              batch: int = 4096, mutable: bool = False, seal_rows: Optional[int] = None,
+              ttl: Optional[float] = None) -> "SketchEngine":
         """Create an engine on ``mapping``'s device; ``corpus_idx`` (C, P) is
         ingested if given, otherwise the engine starts empty and is fed via
-        :meth:`add`."""
+        :meth:`add`. ``mutable=True`` builds over a :class:`SegmentedStore`;
+        ``seal_rows`` auto-seals its head at that many rows and ``ttl`` arms
+        lazy expiry for queries that carry a ``now``."""
         be = backends_mod.get_backend(backend)
-        if corpus_idx is not None:
-            store = SketchStore.from_indices(cfg, mapping, corpus_idx, backend=be)
+        if (seal_rows is not None or ttl is not None) and not mutable:
+            raise ValueError("seal_rows/ttl require mutable=True (an append-only "
+                             "SketchStore has no head to seal and no clock)")
+        if mutable:
+            kw = {"seal_rows": seal_rows, "ttl": ttl}
+            if corpus_idx is not None:
+                store = SegmentedStore.from_indices(cfg, mapping, corpus_idx, backend=be,
+                                                    batch=batch, **kw)
+            else:
+                store = SegmentedStore.create(cfg, mapping, capacity=capacity, **kw)
+        elif corpus_idx is not None:
+            store = SketchStore.from_indices(cfg, mapping, corpus_idx, backend=be, batch=batch)
         else:
             store = SketchStore.create(cfg, mapping, capacity=capacity)
         return cls(store, be, measure, planner or QueryPlanner())
@@ -85,9 +104,60 @@ class SketchEngine:
         return self.store.device
 
     # ---------------------------------------------------------------- ingest
-    def add(self, idx, *, batch: int = 4096) -> range:
-        """Stream (B, P) padded sparse docs into the corpus; returns ids."""
+    def add(self, idx, *, batch: int = 4096, now: float = 0.0) -> range:
+        """Stream (B, P) padded sparse docs into the corpus; returns ids.
+        ``now`` stamps the docs' birth time on a mutable store (TTL measures
+        age against it); an append-only store ignores it."""
+        if isinstance(self.store, SegmentedStore):
+            return self.store.add(idx, backend=self.backend, batch=batch, now=now)
         return self.store.add(idx, backend=self.backend, batch=batch)
+
+    def merge_rows(self, doc_ids, idx) -> None:
+        """OR new content into existing docs (see ``SketchStore.merge_rows``)."""
+        self.store.merge_rows(doc_ids, idx, backend=self.backend)
+
+    # ------------------------------------------------- lifecycle (mutable)
+    def _mutable_store(self) -> SegmentedStore:
+        if not isinstance(self.store, SegmentedStore):
+            raise TypeError("this engine serves an append-only SketchStore; build with "
+                            "mutable=True for delete/update/seal/compact/expire/distill")
+        return self.store
+
+    def delete(self, doc_ids) -> int:
+        """Tombstone docs (head rows zeroed, sealed rows masked)."""
+        return self._mutable_store().delete(doc_ids)
+
+    def update(self, doc_ids, idx, *, now: float = 0.0) -> None:
+        """Replace doc contents, keeping ids (sealed docs relocate into the head)."""
+        self._mutable_store().update(doc_ids, idx, backend=self.backend, now=now)
+
+    def retract_rows(self, doc_ids, idx) -> None:
+        """Decrement elements out of head-resident docs (counting sketch)."""
+        self._mutable_store().retract_rows(doc_ids, idx, backend=self.backend)
+
+    def seal(self):
+        """Freeze the counting head into a packed sealed segment."""
+        return self._mutable_store().seal()
+
+    def compact(self):
+        """Merge sealed segments per width, dropping tombstones; returns stats."""
+        return self._mutable_store().compact()
+
+    def expire(self, ttl: float, now: float) -> int:
+        """Tombstone docs with ``born + ttl <= now``."""
+        return self._mutable_store().expire(ttl, now)
+
+    def distill(self, policy: Optional[DistillPolicy] = None, *, widths=None,
+                now: float = 0.0):
+        """Re-sketch policy-eligible sealed segments to their next smaller
+        width tier; returns the swap's stats, or None when nothing was
+        eligible. ``widths`` is shorthand for an unconditional policy over
+        those tiers. Queries afterwards are served mixed-width."""
+        if policy is None:
+            if widths is None:
+                raise ValueError("pass a DistillPolicy or widths=(N', ...)")
+            policy = DistillPolicy(widths=tuple(widths))
+        return self._mutable_store().distill(policy, now=now)
 
     # ----------------------------------------------------------------- query
     def _padded_query_sketches(self, query_idx: torch.Tensor, padded: int) -> torch.Tensor:
@@ -102,50 +172,75 @@ class SketchEngine:
         """(Q, P) padded query rows -> full (Q, C) similarity matrix.
 
         Materializes O(Q·C) — an analysis surface; the serving path is
-        :meth:`query`. Column ``j`` is doc ``j``."""
+        :meth:`query`. Column ``j`` is doc ``j``; on a segmented store, the
+        j-th live doc in ascending id (``store.live_ids[j]``)."""
         query_idx = as_index_tensor(query_idx, self.device)
         if query_idx.shape[0] == 0:
             return torch.zeros((0, self.store.size), dtype=torch.float32, device=self.device)
+        if isinstance(self.store, SegmentedStore):
+            corpus, fills, _ = self.store.live()  # one gather, not two
+        else:
+            corpus, fills = self.store.sketches, self.store.fills
         out = []
         for chunk in self.planner.plan(query_idx.shape[0]):
             qs = self._padded_query_sketches(
                 query_idx[chunk.start : chunk.start + chunk.rows], chunk.padded)
-            s = self.backend.score(qs, self.store.sketches, self.cfg.n_bins, self.measure,
-                                   corpus_fills=self.store.fills)
+            s = self.backend.score(qs, corpus, self.cfg.n_bins, self.measure,
+                                   corpus_fills=fills)
             out.append(s[: chunk.rows])
         return torch.cat(out, dim=0)
 
+    def _rebucket_queries(self, qs: torch.Tensor, n_bins: int, cache: dict) -> torch.Tensor:
+        """Base-width query sketches folded to ``n_bins``, once per distinct
+        width per chunk (``cache``: width -> folded batch). The fold of the
+        base sketch is the sketch under ``pi mod n_bins``, so the raw query
+        rows are never read again."""
+        if n_bins == self.cfg.n_bins:
+            return qs
+        got = cache.get(n_bins)
+        if got is None:
+            got = cache[n_bins] = self.backend.rebucket(qs, self.cfg.n_bins, n_bins)
+        return got
+
     def _views_topk(self, qs: torch.Tensor, views, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Streaming top-k over the segment views + k-slot merge."""
+        """Streaming top-k over the segment views + k-slot merge; each view is
+        scored at its own width."""
         if not views:
             return (torch.full((qs.shape[0], k), -math.inf, device=qs.device),
                     torch.full((qs.shape[0], k), -1, dtype=torch.int32, device=qs.device))
-        parts = [self._view_part(qs, v, k) for v in views]
+        width_cache: dict = {}
+        parts = [self._view_part(qs, v, k, width_cache) for v in views]
         if len(parts) == 1:
             return parts[0]
         return merge_segment_topk([p[0] for p in parts], [p[1] for p in parts], k)
 
-    def _view_part(self, qs: torch.Tensor, v: SegmentView, k: int
+    def _view_part(self, qs: torch.Tensor, v: SegmentView, k: int, width_cache: dict
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One view's (Q, k) partial: ``Backend.topk``, local rows mapped to
-        global doc ids."""
-        sc, ix = self.backend.topk(qs, v.sketches, self.cfg.n_bins, self.measure, k,
+        """One view's (Q, k) partial: ``Backend.topk`` at the view's width,
+        local rows mapped to global doc ids."""
+        nb = v.n_bins if v.n_bins is not None else self.cfg.n_bins
+        q_w = self._rebucket_queries(qs, nb, width_cache)
+        sc, ix = self.backend.topk(q_w, v.sketches, nb, self.measure, k,
                                    corpus_fills=v.fills, corpus_valid=v.valid)
         if v.ids is not None:
             ix = torch.where(ix >= 0, v.ids[ix.clamp_min(0).to(torch.int64)], ix)
         return sc, ix
 
-    def query(self, query_idx, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    def query(self, query_idx, k: int, *, now: Optional[float] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(Q, P) padded query rows -> (scores (Q, k) float32, ids (Q, k) int32).
 
-        Each planner chunk is sketched and streamed through ``Backend.topk``;
-        if ``k`` exceeds the corpus the tail slots hold score -inf / id -1."""
+        Each planner chunk is sketched and streamed through ``Backend.topk``
+        per view; ids are global doc ids, stable across seal, compaction and
+        distillation. If ``k`` exceeds the live corpus the tail slots hold
+        score -inf / id -1. ``now`` is the query-time clock of lazy TTL expiry
+        on a mutable store with a ``ttl``."""
         query_idx = as_index_tensor(query_idx, self.device)
         n_q = int(query_idx.shape[0])
         if n_q == 0:
             return (torch.zeros((0, k), dtype=torch.float32, device=self.device),
                     torch.full((0, k), -1, dtype=torch.int32, device=self.device))
-        views = self.store.segment_views(now=None)
+        views = self.store.segment_views(now=now)
         out_s, out_i = [], []
         for chunk in self.planner.plan(n_q):
             qs = self._padded_query_sketches(

@@ -7,6 +7,8 @@ so queries stream it into the scorer instead of popcounting the corpus again.
 Ingest is incremental: ``add`` writes rows in place into preallocated
 capacity, which grows by amortized doubling, so a streaming producer pays
 O(1) amortized copies per document. Rows live on the mapping's device.
+BinSketch is an OR-homomorphism, so growing an existing document and merging
+two shard-local stores are plain bitwise ORs (``merge_rows``, ``merge``).
 """
 
 from __future__ import annotations
@@ -29,13 +31,17 @@ class SegmentView(NamedTuple):
     """One scoreable slab of corpus, as the query path sees it.
 
     An append-only ``SketchStore`` is a single view whose row index *is* the
-    doc id: ``ids is None`` means identity mapping, ``valid is None`` means
-    every row is retrievable."""
+    doc id; a ``SegmentedStore`` yields one view per sealed segment plus the
+    mutable head. ``ids is None`` means identity mapping, ``valid is None``
+    means every row is retrievable, ``n_bins is None`` means the store's base
+    sketch width (a distilled segment carries its smaller width, and the
+    engine folds the query sketches to match)."""
 
     sketches: torch.Tensor  # (n, W) int32 packed rows
     fills: torch.Tensor  # (n,) int32 ingest-time fill cache
     ids: Optional[torch.Tensor]  # (n,) int32 global doc ids, or None
     valid: Optional[torch.Tensor]  # (n,) int32/bool mask, or None
+    n_bins: Optional[int] = None  # sketch width, or None = store base width
 
 
 def as_index_tensor(idx, device: torch.device) -> torch.Tensor:
@@ -73,10 +79,11 @@ class SketchStore:
 
     @classmethod
     def from_indices(cls, cfg: binsketch.BinSketchConfig, mapping: torch.Tensor,
-                     corpus_idx, *, backend: Optional["Backend"] = None) -> "SketchStore":
-        """Batch build: sketch (C, P) padded sparse rows, chunk by chunk."""
+                     corpus_idx, *, backend: Optional["Backend"] = None,
+                     batch: int = 4096) -> "SketchStore":
+        """Batch build: sketch (C, P) padded sparse rows in ``batch`` chunks."""
         store = cls.create(cfg, mapping, capacity=max(int(corpus_idx.shape[0]), 1))
-        store.add(corpus_idx, backend=backend)
+        store.add(corpus_idx, backend=backend, batch=batch)
         return store
 
     @classmethod
@@ -140,6 +147,30 @@ class SketchStore:
             rows = as_index_tensor(idx[s : s + batch], self.device)
             self.add_sketches(self._sketch_rows(rows, backend))
         return range(lo, self.size)
+
+    def merge_rows(self, doc_ids, idx, *, backend: Optional["Backend"] = None) -> None:
+        """OR new content into existing docs: ``doc_ids (B,)`` row ids,
+        ``idx (B, P)`` padded sparse rows. One OR and a fill refresh on the
+        touched rows; duplicate ids are OR-combined first (``segment_or``),
+        since an indexed write keeps one value per row."""
+        upd = self._sketch_rows(as_index_tensor(idx, self.device), backend)
+        uniq, inv = np.unique(np.asarray(doc_ids, np.int64), return_inverse=True)
+        if len(uniq) < len(inv):
+            upd = pk.segment_or(upd, torch.from_numpy(inv), len(uniq))
+        rows = torch.from_numpy(uniq).to(self.device)
+        merged = self._sketches[rows] | upd
+        self._sketches[rows] = merged
+        self._fills[rows] = pk.row_popcount(merged)
+
+    def merge(self, other: "SketchStore") -> "SketchStore":
+        """OR-merge ``other`` into this store row by row (the sketch of each
+        row's union); the shorter store's missing rows count as empty sets."""
+        n = max(self.size, other.size)
+        self._ensure_capacity(n)
+        self._sketches[: other.size] |= other.sketches.to(self.device)
+        self.size = n
+        self._fills[:n] = pk.row_popcount(self._sketches[:n])
+        return self
 
     def add_sketches(self, sketches: torch.Tensor) -> range:
         """Append pre-built packed rows in place; fills enter the cache here."""

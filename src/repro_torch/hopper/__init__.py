@@ -1,7 +1,7 @@
 """repro_torch.hopper — the Hopper (sm_90a) kernels of the port, in CUDA C++.
 
 The counterpart of the JAX package's ``kernels/``: each Pallas kernel on the
-serving path has a CUDA source in ``csrc/``, a launch module, and a plain
+serving and mutable paths has a CUDA source in ``csrc/``, a launch module, and a plain
 PyTorch version in :mod:`.ref`. Callers go through :mod:`.ops`. Nothing is
 compiled at import; :mod:`.build` runs ``nvcc`` at first use.
 
@@ -10,4 +10,6 @@ compiled at import; :mod:`.build` runs ``nvcc`` at first use.
 | sketch build | csrc/sketch_build.cu | kernels/sketch_build.py::build_sketch_kernel |
 | popcount score | csrc/popcount_sim.cu | kernels/popcount_sim.py::sketch_score_kernel |
 | streaming top-k | csrc/topk_stream.cu | kernels/topk_stream.py::sketch_topk_kernel |
+| occupancy count | csrc/count_bins.cu | kernels/count_update.py::count_bins_kernel |
+| width fold | csrc/rebucket.cu | kernels/rebucket.py::rebucket_kernel |
 """

@@ -28,7 +28,7 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "check", "library",
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("sketch_build", "popcount_sim", "topk_stream")
+SOURCES = ("sketch_build", "popcount_sim", "topk_stream", "count_bins", "rebucket")
 # --fmad=false keeps the float epilogue free of contracted multiply-adds, so
 # it rounds where the plain version does; no fast math
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -56,6 +56,14 @@ _SIGNATURES: Dict[str, Dict[str, Sequence]] = {
                                 _VOIDP, _VOIDP),
         # partial, Q, splits, k_pad, out_scores, out_ids, stream
         "sketch_topk_merge": (_VOIDP, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP),
+    },
+    "count_bins": {
+        # bins, B, P, n_bins, tile, out, stream
+        "count_bins": (_VOIDP, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP),
+    },
+    "rebucket": {
+        # src, B, W, n_bins, n_bins_new, W_new, out, stream
+        "rebucket": (_VOIDP, _INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP),
     },
 }
 

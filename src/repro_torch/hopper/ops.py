@@ -3,6 +3,10 @@
 * :func:`build_sketch` — mapped bin ids -> packed words.
 * :func:`sketch_score` — (Q, C) float32 similarity, fused epilogue.
 * :func:`sketch_topk` — streaming top-k; the (Q, C) matrix is never stored.
+* :func:`count_bins` — mapped bin ids -> dense per-bin occupancy (the
+  counting head's insert and retract deltas).
+* :func:`rebucket` — packed rows folded from N to N' bins (queries meeting a
+  distilled segment).
 
 Packed words are int32 tensors holding uint32 bits; any other dtype raises
 ``TypeError`` (the reference raises on non-uint32). ``a_fills``/``b_fills``
@@ -22,15 +26,18 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..core import packed as pk
+from . import count_bins as count_bins_mod
 from . import popcount_sim, ref, sketch_build, topk_stream
+from . import rebucket as rebucket_mod
 
-__all__ = ["MAX_K", "build_sketch", "launches", "reset_launches", "sketch_score",
-           "sketch_topk"]
+__all__ = ["MAX_K", "build_sketch", "count_bins", "launches", "rebucket",
+           "reset_launches", "sketch_score", "sketch_topk"]
 
 # largest k the streaming kernel takes (its per-query lists live in shared memory)
 MAX_K = topk_stream.MAX_K_PAD
 
-launches: Dict[str, int] = {"build_sketch": 0, "sketch_score": 0, "sketch_topk": 0}
+launches: Dict[str, int] = {"build_sketch": 0, "sketch_score": 0, "sketch_topk": 0,
+                            "count_bins": 0, "rebucket": 0}
 
 
 def reset_launches() -> None:
@@ -66,6 +73,46 @@ def build_sketch(bins: torch.Tensor, n_bins: int) -> torch.Tensor:
         return torch.empty((0, pk.num_words(n_bins)), dtype=torch.int32, device=bins.device)
     out = sketch_build.launch(bins, n_bins)
     launches["build_sketch"] += 1
+    return out
+
+
+def count_bins(bins: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """Pre-mapped padded bin ids (B, P) int32 -> dense occupancy (B, n_bins) int32.
+
+    ``out[b, t] = #{p : bins[b, p] == t}``; pads (-1) and ids ``>= n_bins``
+    never count. Rows are counted with multiplicity: the store dedups first.
+    The counters are not clamped here; the store clamps them."""
+    if bins.dtype != torch.int32:
+        raise TypeError(f"bin ids must be int32, got {bins.dtype}")
+    if bins.device.type == "cpu":
+        return ref.count_bins_ref(bins, n_bins)
+    if bins.shape[0] == 0:
+        return torch.empty((0, int(n_bins)), dtype=torch.int32, device=bins.device)
+    out = count_bins_mod.launch(bins, n_bins)
+    launches["count_bins"] += 1
+    return out
+
+
+def rebucket(packed: torch.Tensor, n_bins: int, n_bins_new: int) -> torch.Tensor:
+    """Packed (B, W) words at ``n_bins`` -> (B, W') at ``n_bins_new`` bins,
+    bin ``j`` ORed into ``j mod n_bins_new``.
+
+    The result is the sketch under the derived map ``pi mod n_bins_new``.
+    Source bits ``>= n_bins`` in the last word are ignored. ``n_bins_new ==
+    n_bins`` returns the input and launches nothing; fills of folded rows
+    change, and the caller popcounts them again."""
+    _check_words(packed)
+    if not 1 <= n_bins_new <= n_bins:
+        raise ValueError(f"need 1 <= n_bins_new <= n_bins, got {n_bins_new} vs {n_bins}")
+    if n_bins_new == n_bins:
+        return packed
+    if packed.device.type == "cpu":
+        return ref.rebucket_ref(packed, n_bins, n_bins_new)
+    if packed.shape[0] == 0:
+        return torch.empty((0, pk.num_words(n_bins_new)), dtype=torch.int32,
+                           device=packed.device)
+    out = rebucket_mod.launch(packed, n_bins, n_bins_new)
+    launches["rebucket"] += 1
     return out
 
 

@@ -1,10 +1,13 @@
-"""Plain PyTorch versions of the three Hopper kernels.
+"""Plain PyTorch versions of the Hopper kernels.
 
 Each function computes exactly what its kernel computes, with ordinary tensor
 operations. On a CPU tensor the wrappers in :mod:`repro_torch.hopper.ops` run
 these; on the card ``chip_smoke.py`` holds each kernel against them.
 
 * :func:`build_sketch_ref` — scatter construction (``kernels/ref.py``'s).
+* :func:`count_bins_ref` — per-bin occupancy by ``scatter_add_``.
+* :func:`rebucket_ref` — the N -> N' fold as the kernel's funnel shift, on
+  int64 words.
 * :func:`sketch_score_ref` — AND-popcount plus the epilogue of
   ``kernels/popcount_sim.py::_epilogue``; each count's log term comes from
   :func:`log_ratio_table`, which the kernels read too.
@@ -27,8 +30,10 @@ from ..core import packed as pk
 __all__ = [
     "MEASURES",
     "build_sketch_ref",
+    "count_bins_ref",
     "log_ratio_table",
     "log_f32",
+    "rebucket_ref",
     "score_epilogue",
     "select_topk",
     "sketch_score_ref",
@@ -50,6 +55,41 @@ def build_sketch_ref(bins: torch.Tensor, n_bins: int) -> torch.Tensor:
     dense = torch.zeros((bins.shape[0], n_bins), dtype=torch.uint8, device=bins.device)
     dense[rows[keep], bins[keep].to(torch.int64)] = 1
     return pk.pack_bits(dense)
+
+
+def count_bins_ref(bins: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """``bins: (B, P)`` int32 mapped bin ids (pad -1) -> ``(B, n_bins)`` int32
+    occupancy; ids outside ``[0, n_bins)`` never count."""
+    keep = (bins >= 0) & (bins < n_bins)
+    safe = torch.where(keep, bins, torch.zeros_like(bins)).to(torch.int64)
+    out = torch.zeros((bins.shape[0], n_bins), dtype=torch.int32, device=bins.device)
+    return out.scatter_add_(1, safe, keep.to(torch.int32))
+
+
+def rebucket_ref(packed: torch.Tensor, n_bins: int, n_bins_new: int) -> torch.Tensor:
+    """``(B, ceil(N/32))`` int32 words at N bins -> ``(B, ceil(N'/32))`` at
+    ``N' <= N``, bin ``j`` ORed into ``j mod N'``.
+
+    Chunk ``q`` of N' source bits is two word slices funnel-shifted by
+    ``q*N' mod 32``; in int64 a shift by 32 is defined (it gives bits the
+    final mask drops), so ``s == 0`` needs no branch. Source bits ``>= N``
+    are zeroed first, output bits ``>= N'`` last."""
+    b, w = packed.shape
+    w_new = pk.num_words(n_bins_new)
+    n_chunks = -(-n_bins // n_bins_new)
+    src = packed.to(torch.int64) & pk._U32
+    if n_bins % 32:
+        src[:, -1] &= (1 << (n_bins % 32)) - 1
+    w_need = ((n_chunks - 1) * n_bins_new) // 32 + w_new + 1
+    src = torch.nn.functional.pad(src, (0, max(w_need - w, 0)))
+    acc = torch.zeros((b, w_new), dtype=torch.int64, device=packed.device)
+    for q in range(n_chunks):
+        lo, s = divmod(q * n_bins_new, 32)
+        acc |= (src[:, lo : lo + w_new] >> s) | (src[:, lo + 1 : lo + 1 + w_new] << (32 - s))
+    bits_left = n_bins_new - 32 * torch.arange(w_new, dtype=torch.int64, device=packed.device)
+    mask = torch.where(bits_left >= 32, torch.full_like(bits_left, pk._U32),
+                       (torch.ones_like(bits_left) << bits_left.clamp(0, 31)) - 1)
+    return pk._to_int32_bits(acc & mask)
 
 
 # Cephes coefficients of log(1 + x) on [sqrt(1/2) - 1, sqrt(2) - 1]

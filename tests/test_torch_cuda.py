@@ -63,3 +63,35 @@ def test_score_and_topk_kernels(dev, q, c, n_bins, measure):
             r = differ.nonzero(as_tuple=True)[0]
             torch.testing.assert_close(want[r, ix[differ].long()], want[r, wi[differ].long()],
                                        rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,p,n_bins", [(16384, 870, 5859), (7, 33, 517), (300, 1000, 70_000),
+                                        (1, 4, 32)])
+def test_count_bins_kernel(dev, b, p, n_bins):
+    """The ingest shape of the mutable path (NYTimes at rho 0.05: N=5859),
+    an N wider than one kernel tile, ids >= N and rows of pads only."""
+    gen = torch.Generator(device=dev).manual_seed(p)
+    bins = torch.randint(-1, n_bins + 40, (b, p), generator=gen, device=dev, dtype=torch.int32)
+    bins[0] = -1
+    before = ops.launches["count_bins"]
+    got = ops.count_bins(bins, n_bins)
+    assert ops.launches["count_bins"] == before + 1
+    assert torch.equal(got, ref.count_bins_ref(bins, n_bins))
+
+
+@pytest.mark.parametrize("b,n_bins,n_new", [(256, 5859, 2929), (256, 5859, 1464),
+                                            (13, 512, 100), (9, 101, 33), (5, 517, 1),
+                                            (5, 517, 32), (3, 33, 32)])
+def test_rebucket_kernel(dev, b, n_bins, n_new):
+    """A query chunk folded to the mutable path's distilled widths, and N'
+    that does not divide N, N' = 1 and 32, N not a multiple of 32; source
+    bits >= N are set and must not leak into the fold."""
+    gen = torch.Generator(device=dev).manual_seed(n_new)
+    bits = torch.rand((b, pk.num_words(n_bins) * 32), generator=gen, device=dev) < 0.3
+    words = pk.pack_bits(bits.to(torch.uint8))
+    before = ops.launches["rebucket"]
+    got = ops.rebucket(words, n_bins, n_new)
+    assert ops.launches["rebucket"] == before + 1
+    assert torch.equal(got, ref.rebucket_ref(words, n_bins, n_new))
+    assert torch.equal(got, pk.fold_packed(words, n_bins, n_new))
+    assert ops.rebucket(words, n_bins, n_bins) is words and ops.launches["rebucket"] == before + 1

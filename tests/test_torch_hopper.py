@@ -219,4 +219,5 @@ def test_cpu_calls_do_not_count_as_launches():
     ops.sketch_score(a, a, 64)
     ops.sketch_topk(a, a, 64, k=2)
     ops.build_sketch(torch.zeros((2, 3), dtype=torch.int32), 64)
-    assert ops.launches == {"build_sketch": 0, "sketch_score": 0, "sketch_topk": 0}
+    assert ops.launches == {"build_sketch": 0, "sketch_score": 0, "sketch_topk": 0,
+                            "count_bins": 0, "rebucket": 0}

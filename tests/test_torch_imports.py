@@ -78,3 +78,7 @@ def test_kernel_wrappers_never_fall_back():
         ops.sketch_score(words, words, 64, a_fills=torch.zeros(4, dtype=torch.int32,
                                                                  device="meta"),
                          b_fills=torch.zeros(4, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.count_bins(words, 64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.rebucket(words, 64, 32)
