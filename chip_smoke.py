@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py                    # the full run: 300k-doc corpus
-    python3 chip_smoke.py --n-points 20000   # a shorter rehearsal
+    python3 chip_smoke.py --n-points 20000 --prefilter-docs 65536   # a rehearsal
 
 Phases, each fatal on failure (nothing is caught while the run goes on):
 
@@ -33,17 +33,45 @@ Phases, each fatal on failure (nothing is caught while the run goes on):
    queries are folded to, beside the distilled store's. Then ``count_bins``
    and ``rebucket`` are held against their plain versions (exact) at the
    path's shapes and ragged ones, and timed beside their bounds.
+2c. The banded prefilter through ``serve``: the same corpus with
+   ``mutate_rate=0.3, prefilter=True, bands=8``. ``band_hash`` must launch
+   (seal, compaction, every query chunk) and some segment must be scanned
+   banded. For every query batch: each returned (id, score) equals that id's
+   score in the exhaustive ``score_all``, within rtol 1e-5 / atol 1e-6; the
+   result is the exact top-k over the candidate set, computed apart from the
+   index with the plain band hash, up to score ties; and each query's own doc
+   is in its result. Recall@10 against exact Jaccard is printed with no
+   floor (uniform docs rarely share a whole 736-bit band). ``band_hash`` is
+   then held against its plain version (exact) at the path's shapes and
+   timed beside its bound.
+2d. The prefilter at serving scale: the JAX repo's ``bench_engine
+   run_prefilter`` defaults, 1,000,000 clustered docs (N=512, d=4096, 48
+   indices, clusters of 12) sealed as 4 segments through ``seal_sketches``,
+   ``BandPolicy()``, 64 near-duplicate queries. Recall@10 of the
+   prefiltered ids against the exhaustive ones must reach 0.95, some
+   segment must be banded, the candidate fraction must stay under the
+   escape hatch, and the returned scores must equal the exhaustive ones.
+   ``--prefilter-docs`` shrinks the corpus for rehearsals.
+2e. Hash mode: the NYTimes-shaped corpus sketched by ``ops.hash_build_sketch``
+   (multiply-shift coefficients from ``make_mapping``, mode ``hash``, the
+   table path's N) in batches of 16384, bulk-loaded with
+   ``SketchStore.add_sketches`` and served; every batch bit-equal to
+   ``map_indices`` in hash mode followed by ``ops.build_sketch``, recall@10
+   against exact Jaccard at least 0.3. ``hash_build`` is then held against
+   its plain version at the path's shape and ragged ones (N % 32 != 0,
+   N < 32, rows of pads only) and timed beside its bound.
 3. Each kernel held against its plain PyTorch version on the card, at the
    main path's shapes and on ragged ones: build bit-exact, score counts
    exact and measures within rtol 1e-5 / atol 1e-6, top-k equal up to
-   provable score ties. Then each timed with CUDA events (median), beside
-   its plain version and its bound on this card.
+   provable score ties, band keys bit-exact (W not a multiple of the bands,
+   more bands than words, B = W = 1). Then each timed with CUDA events
+   (median), beside its plain version and its bound on this card.
 
-The line before the last lists the kernels as JSON, the one before it the
-card; before those, a ``{"serve": ...}`` and a ``{"mutable": ...}`` line
-with the end-to-end readings; the last line is the device summary. Without a
-card, or without the repository beside this file, it exits non-zero and
-prints no result.
+The line before the last lists the seven kernels as JSON, the one before it
+the card; before those, ``{"serve": ...}``, ``{"mutable": ...}``,
+``{"prefilter": ...}`` and ``{"hash_mode": ...}`` lines with the end-to-end
+readings; the last line is the device summary. Without a card, or without
+the repository beside this file, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -129,12 +157,23 @@ def check_topk(torch, got, want, truth, what: str, rtol: float = RTOL,
     return err
 
 
-def serve_warm(torch, engine, queries, now) -> float:
+def exact_err(torch, got, want, what: str) -> float:
+    """Largest absolute difference of two integer tensors that must be equal:
+    0.0 when they are; the run fails otherwise."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{what}: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+    err = float((got.long() - want.long()).abs().max()) if got.numel() else 0.0
+    if err:
+        fail(f"{what}: differs from its plain version by up to {err}")
+    return err
+
+
+def serve_warm(torch, engine, queries, now, prefilter=None) -> float:
     """Queries per second of serving ``queries`` again in batches of 256."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for s in range(0, len(queries), 256):
-        engine.query(queries[s : s + 256], 10, now=now)
+        engine.query(queries[s : s + 256], 10, now=now, prefilter=prefilter)
     torch.cuda.synchronize()
     return len(queries) / (time.perf_counter() - t0)
 
@@ -282,27 +321,33 @@ def mutable_phase(torch, dev, spec, n_bins: int):
     # ------------------------------------- count_bins / rebucket vs plain
     corpus_rows = torch.from_numpy(out["corpus"][:16384]).to(dev)
     bins = binsketch.map_indices(cfg, mapping, counting.dedup_padded(corpus_rows))
-    if not torch.equal(ops.count_bins(bins, n_bins), ref.count_bins_ref(bins, n_bins)):
-        fail("count_bins differs from its plain version at the ingest shape")
+    errs = {"count_bins": exact_err(torch, ops.count_bins(bins, n_bins),
+                                    ref.count_bins_ref(bins, n_bins),
+                                    "count_bins at the ingest shape"),
+            "rebucket": 0.0}
     gen = torch.Generator(device=dev).manual_seed(2)
     for b_, p_, n_ in [(1, 4, 32), (7, 33, 517), (300, 1000, 70_000), (64, 870, n_bins)]:
         lens = torch.randint(0, p_ + 1, (b_, 1), generator=gen, device=dev)
         rb = torch.randint(0, n_ + 40, (b_, p_), generator=gen, device=dev, dtype=torch.int32)
         rb = torch.where(torch.arange(p_, device=dev)[None, :] < lens, rb, -1).to(torch.int32)
         rb[0] = -1  # a row of pads only
-        if not torch.equal(ops.count_bins(rb, n_), ref.count_bins_ref(rb, n_)):
-            fail(f"count_bins differs at {(b_, p_, n_)}")
+        errs["count_bins"] = max(errs["count_bins"], exact_err(
+            torch, ops.count_bins(rb, n_), ref.count_bins_ref(rb, n_),
+            f"count_bins at {(b_, p_, n_)}"))
     for n_new in (n1, n2):
-        if not torch.equal(ops.rebucket(qs, n_bins, n_new), ref.rebucket_ref(qs, n_bins, n_new)):
-            fail(f"rebucket differs from its plain version at (256, {cfg.n_words}) -> {n_new}")
+        errs["rebucket"] = max(errs["rebucket"], exact_err(
+            torch, ops.rebucket(qs, n_bins, n_new), ref.rebucket_ref(qs, n_bins, n_new),
+            f"rebucket at (256, {cfg.n_words}) -> {n_new}"))
     for b_, n_, n_new in [(13, 512, 100), (9, 101, 33), (5, 517, 1), (5, 517, 32),
                           (3, 33, 32), (64, n_bins, 7)]:
         bits = torch.rand((b_, pk.num_words(n_) * 32), generator=gen, device=dev) < 0.3
         words = pk.pack_bits(bits.to(torch.uint8))  # bits >= N set too: they must not leak
-        if not torch.equal(ops.rebucket(words, n_, n_new), ref.rebucket_ref(words, n_, n_new)):
-            fail(f"rebucket differs at {(b_, n_, n_new)}")
-        if not torch.equal(ops.rebucket(words, n_, n_new), pk.fold_packed(words, n_, n_new)):
-            fail(f"rebucket differs from fold_packed at {(b_, n_, n_new)}")
+        got = ops.rebucket(words, n_, n_new)
+        errs["rebucket"] = max(errs["rebucket"],
+                               exact_err(torch, got, ref.rebucket_ref(words, n_, n_new),
+                                         f"rebucket at {(b_, n_, n_new)}"),
+                               exact_err(torch, got, pk.fold_packed(words, n_, n_new),
+                                         f"rebucket vs fold_packed at {(b_, n_, n_new)}"))
     torch.cuda.synchronize()
     print("count_bins and rebucket vs plain versions: all agree (exact)")
 
@@ -329,7 +374,7 @@ def mutable_phase(torch, dev, spec, n_bins: int):
     ]:
         b_ms, b_by = bound_ms(n_bytes, n_ops)
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": launches[name], "max_abs_err": 0.0, "ms": ms,
+                     "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": lib})
     print(f"shapes: count_bins {tuple(bins.shape)} -> (B, N={n_bins}); rebucket "
@@ -353,11 +398,387 @@ def mutable_phase(torch, dev, spec, n_bins: int):
     }
     return rows, readings
 
+def candidate_ids(torch, engine, queries, now) -> np.ndarray:
+    """Doc ids a prefiltered query of the batch ``queries`` must score, found
+    without the bucket index: the plain band hash of every indexed segment's
+    rows against the batch's keys, the live and TTL filter, the escape hatch;
+    every live row of unindexed segments and of the head."""
+    from repro_torch.core import packed as pk
+    from repro_torch.engine import ReferenceBackend
+
+    store, cfg, pol = engine.store, engine.cfg, engine.store.band_policy
+    ref_be = ReferenceBackend()
+    qs = ref_be.sketch(cfg, store.mapping, queries)
+    out = []
+    for seg in store.sealed:
+        live = seg.valid.copy()
+        if store.ttl is not None and now is not None:
+            live &= seg.born + store.ttl > now
+        if seg.band_index is None:
+            out.append(seg.ids[live])
+            continue
+        nb = seg.n_bins or cfg.n_bins
+        qk = pk.band_hash(ref_be.rebucket(qs, cfg.n_bins, nb), pol.n_bands)
+        rk = pk.band_hash(seg.sketches, pol.n_bands)
+        hit = torch.zeros(seg.n_rows, dtype=torch.bool, device=rk.device)
+        for t in range(rk.shape[1]):
+            hit |= torch.isin(rk[:, t], qk[:, t])
+        rows = hit.cpu().numpy() & live
+        if rows.sum() > pol.max_candidate_frac * seg.n_rows:
+            rows = live  # the escape hatch: the segment is scanned in full
+        out.append(seg.ids[rows])
+    h = store.head
+    live = h.valid[: h.size].copy()
+    if store.ttl is not None and now is not None:
+        live &= h.born[: h.size] + store.ttl > now
+    out.append(h.ids[: h.size][live])
+    return np.sort(np.concatenate(out))
+
+
+def band_hash_rows(torch, dev, words, launches):
+    """``band_hash`` against its plain version (exact) at the path's shapes
+    and ragged ones, then timed on ``words``; returns its kernel row."""
+    from repro_torch.core import packed as pk
+    from repro_torch.hopper import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = [words, words[:256]]
+    for b_, w_ in [(9, 13), (3, 1), (1, 1), (7, 32), (2, 64), (5, 184)]:
+        x = torch.randint(-(1 << 31), 1 << 31, (b_, w_), generator=gen, device=dev,
+                          dtype=torch.int64).to(torch.int32)
+        x[0] = -1  # every bit set: the product's overflow case
+        cases.append(x)
+    err = max(exact_err(torch, ops.band_hash(x, n_bands), ref.band_hash_ref(x, n_bands),
+                        f"band_hash at {tuple(x.shape)}, {n_bands} bands")
+              for x in cases for n_bands in (8, 5, 32, 1))
+    torch.cuda.synchronize()
+    b, w = words.shape
+    nb_eff, _ = pk.band_shape(w, 8)
+    b_ms, b_by = bound_ms(4.0 * b * w + 4.0 * b * nb_eff, 4.0 * b * w)
+    print(f"band_hash vs plain: all agree (exact) at {(b, w)} and {(256, w)}, 8 bands, and "
+          "ragged shapes; library_ms: none (no single PyTorch call hashes word groups)")
+    return {"name": "band_hash", "route": "cuda",
+            "source": "src/repro_torch/hopper/csrc/band_hash.cu",
+            "replaces": "src/repro/kernels/band_hash.py:50",
+            "launches": launches["band_hash"], "max_abs_err": err,
+            "ms": cuda_ms(torch, lambda: ops.band_hash(words, 8), 20),
+            "plain_ms": cuda_ms(torch, lambda: ref.band_hash_ref(words, 8), 3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def prefilter_stages(torch, engine, queries, now=None) -> dict:
+    """Median host-clock milliseconds of one prefiltered planner chunk's
+    stages, each ended by a device sync: query sketch, band keys (hash and
+    copy to the host), bucket lookup, candidate gather plus top-k, merge,
+    over 5 runs. It rebuilds ``SketchEngine._prefiltered_topk``'s loop from
+    the engine's own stage methods for banded segments only (no head, no
+    unindexed segment, no escape hatch), so it times a copy of that loop:
+    every sealed segment must be banded (the phases that call this check)."""
+    from repro_torch.engine import merge_segment_topk
+
+    chunk = engine.planner.plan(len(queries))[0]
+    runs = []
+    for _ in range(5):
+        ms = dict.fromkeys(("sketch", "band_keys", "lookup", "gather_topk", "merge"), 0.0)
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn()
+            torch.cuda.synchronize()
+            ms[name] += (time.perf_counter() - t0) * 1e3
+            return got
+
+        qs = timed("sketch", lambda: engine._padded_query_sketches(queries[: chunk.rows],
+                                                                   chunk.padded))
+        width_cache, qkeys_cache, parts = {}, {}, []
+        for seg in engine.store.sealed:
+            nb = seg.n_bins or engine.cfg.n_bins
+            qk = timed("band_keys", lambda: engine._query_band_keys(qs, nb, chunk.rows,
+                                                                    width_cache, qkeys_cache))
+            cand = timed("lookup", lambda: engine._segment_candidates(seg, qk, now))
+            if cand is None:
+                fail("prefilter_stages: a segment went through the escape hatch")
+            parts.append(timed("gather_topk", lambda: engine._gathered_part(qs, seg, cand, 10,
+                                                                            width_cache)))
+        if len(parts) > 1:
+            timed("merge", lambda: merge_segment_topk([p[0] for p in parts],
+                                                      [p[1] for p in parts], 10))
+        runs.append(ms)
+    return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+
+
+def prefilter_phase(torch, dev, spec):
+    """Phase 2c: the banded prefilter through ``serve``, its checks, and the
+    band_hash kernel against its plain version. Returns the kernel's JSON
+    row and the end-to-end readings."""
+    from repro_torch.hopper import ops, ref
+    from repro_torch.launch.serve import recall_at, serve
+
+    ops.reset_launches()
+    out = serve(spec, queries=1024, topk=10, rho=0.05, batch=256, ingest_batch=16384,
+                backend="cuda", device=dev, mutate_rate=0.3, prefilter=True, bands=8)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    print(f"prefilter path launches: {launches}")
+    if launches["band_hash"] < 1:
+        fail("kernel band_hash never launched on the prefilter path")
+    engine, now = out["engine"], out["serve_now"]
+    store = engine.store
+    queries = torch.from_numpy(out["queries"]).to(dev)
+    live_ids = store.live_ids
+    live_dev = torch.from_numpy(live_ids).to(dev)
+    totals = engine._fresh_prefilter_stats()
+    worst = 0.0
+    for s in range(0, len(queries), 256):
+        qb = queries[s : s + 256]
+        sc, ix = engine.query(qb, 10, now=now)
+        stats = engine.last_prefilter_stats
+        for key in totals:
+            totals[key] += stats[key]
+        if stats["banded_segments"] < 1:
+            fail(f"no segment was scanned banded for query batch {s // 256}: {stats}")
+        truth = engine.score_all(qb)  # (256, live) exhaustive scores, live ids ascending
+        ix = ix.long()
+        cols = torch.where(ix >= 0, torch.searchsorted(live_dev, ix.clamp_min(0)), ix)
+        if not torch.equal(torch.where(ix >= 0, live_dev[cols.clamp_min(0)], ix), ix):
+            fail("the prefilter served an id that is not live")
+        finite = torch.isfinite(sc)
+        ex = torch.gather(truth, 1, cols.clamp_min(0))
+        if not torch.allclose(sc[finite], ex[finite], rtol=RTOL, atol=ATOL):
+            fail("prefiltered scores differ from the exhaustive scan's scores of the same ids")
+        cand = torch.from_numpy(np.searchsorted(live_ids, candidate_ids(torch, engine, qb,
+                                                                        now))).to(dev)
+        masked = torch.full_like(truth, float("-inf"))
+        masked[:, cand] = truth[:, cand]
+        cols_all = torch.arange(truth.shape[1], dtype=torch.int32, device=dev).expand_as(truth)
+        want = ref.select_topk(masked, cols_all, 10)
+        worst = max(worst, check_topk(torch, (sc, cols), (want[0], want[1].long()), truth,
+                                      "prefiltered top-k vs the exact top-k over the candidates"))
+        own = torch.from_numpy(out["query_ids"][s : s + 256]).to(dev)
+        if not (ix == own[:, None]).any(dim=1).all():
+            fail("a query's own doc is missing from its prefiltered result")
+        del truth, masked
+    frac = totals["cand_rows"] / max(totals["seg_rows"], 1)
+    qps_pf = serve_warm(torch, engine, queries, now, prefilter=True)
+    qps_ex = serve_warm(torch, engine, queries, now, prefilter=False)
+    ids_ex = torch.cat([engine.query(queries[s : s + 256], 10, now=now, prefilter=False)[1]
+                        for s in range(0, len(queries), 256)]).cpu().numpy()
+    recall_ex = recall_at(ids_ex, out["truth_ids"], 10)
+    print(f"prefilter: candidate fraction {frac:.6f}; {totals['banded_segments']} banded / "
+          f"{totals['exhaustive_segments']} escape-hatch / {totals['unindexed_segments']} "
+          f"unindexed segment scans over {len(queries) // 256} batches; "
+          f"{qps_pf:.1f} q/s prefiltered, {qps_ex:.1f} q/s exhaustive (warm); recall@10 vs "
+          f"exact Jaccard {out['recall']:.4f} prefiltered, {recall_ex:.4f} exhaustive "
+          "(no floor)")
+    stages = prefilter_stages(torch, engine, queries[:256], now)
+    print(f"prefilter: one 256-query chunk, ms by stage (host clock, synced): {stages}")
+    seg = max(store.sealed, key=lambda x: x.n_rows)
+    row = band_hash_rows(torch, dev, seg.sketches, launches)
+    readings = {
+        "n_docs": out["n_docs"], "n_bins": out["n_bins"], "bands": 8,
+        "live": int(len(live_ids)), "segments": [x.n_rows for x in store.sealed],
+        "band_index": [x.band_index.stats() if x.band_index is not None else None
+                       for x in store.sealed],
+        "candidate_fraction": frac, **{k: int(v) for k, v in totals.items()},
+        "first_queries_per_s": out["queries_per_s"], "warm_queries_per_s": qps_pf,
+        "warm_queries_per_s_exhaustive": qps_ex, "speedup": qps_pf / qps_ex,
+        "recall": out["recall"], "recall_exhaustive": recall_ex,
+        "ingest_docs_per_s": out["docs_per_s"], "mutate_s": out["mutate_s"],
+        "max_abs_err": worst, "chunk_stage_ms": stages,
+    }
+    return row, readings
+
+
+def _clustered_corpus(rng, n_docs, n_clusters, d, nnz):
+    """(n_docs, nnz) docs in near-duplicate clusters: one base doc per cluster,
+    one index re-rolled per member (a copy of the JAX repo's
+    ``benchmarks/bench_engine.py::_clustered_corpus``, whose package imports
+    JAX)."""
+    base = rng.integers(0, d, size=(n_clusters, nnz), dtype=np.int32)
+    docs = base[np.arange(n_docs) % n_clusters].copy()
+    swap = rng.integers(0, nnz, size=n_docs)
+    docs[np.arange(n_docs), swap] = rng.integers(0, d, size=n_docs)
+    return np.sort(docs, axis=1)
+
+
+def prefilter_scale_phase(torch, dev, n_docs: int):
+    """Phase 2d: the prefilter at the JAX repo's ``run_prefilter`` defaults
+    (``bench_engine.py:202-204``): 64 near-duplicate queries, timed 5 times
+    each way. Returns the readings."""
+    from repro_torch.core import BinSketchConfig, make_mapping
+    from repro_torch.engine import BandPolicy, QueryPlanner, SketchEngine
+    from repro_torch.hopper import ops
+
+    d, nnz, n_bins, cluster, segments, queries = 4096, 48, 512, 12, 4, 64
+    rng = np.random.default_rng(0)
+    cfg = BinSketchConfig(d=d, n_bins=n_bins)
+    mapping = make_mapping(cfg, seed=0, device=dev)
+    policy = BandPolicy()
+    engine = SketchEngine.build(cfg, mapping, backend="cuda", mutable=True, band_policy=policy,
+                                planner=QueryPlanner(min_batch=8, max_batch=queries))
+    docs = _clustered_corpus(rng, n_docs, max(n_docs // cluster, 1), d, nnz)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seg_rows = -(-n_docs // segments)
+    for s in range(0, n_docs, seg_rows):
+        part = docs[s : s + seg_rows]
+        sk = torch.cat([engine.backend.sketch(cfg, mapping,
+                                              torch.from_numpy(part[b : b + 131072]).to(dev))
+                        for b in range(0, len(part), 131072)])
+        engine.store.seal_sketches(sk, backend=engine.backend)
+    torch.cuda.synchronize()
+    t_ingest = time.perf_counter() - t0
+    pick = rng.choice(n_docs, queries, replace=False)
+    q_np = docs[pick].copy()
+    q_np[np.arange(queries), rng.integers(0, nnz, queries)] = rng.integers(0, d, queries)
+    q = torch.from_numpy(np.sort(q_np, axis=1)).to(dev)
+    s_ex, i_ex = engine.query(q, 10, prefilter=False)
+    s_pf, i_pf = engine.query(q, 10, prefilter=True)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    stats = dict(engine.last_prefilter_stats)
+    print(f"prefilter at scale launches: {launches}")
+    if launches["band_hash"] < 1:
+        fail("kernel band_hash never launched at serving scale")
+    ids_ex, ids_pf = i_ex.cpu().numpy(), i_pf.cpu().numpy()
+    hits = sum(len(set(ids_pf[i].tolist()) & {t for t in ids_ex[i].tolist() if t >= 0})
+               for i in range(queries))
+    recall = hits / max(int((ids_ex >= 0).sum()), 1)
+    frac = stats["cand_rows"] / max(stats["seg_rows"], 1)
+    truth = engine.score_all(q)  # ids are 0..n-1, live and gap-free: column == id
+    finite = torch.isfinite(s_pf)
+    ex = torch.gather(truth, 1, i_pf.long().clamp_min(0))
+    err = float((s_pf[finite] - ex[finite]).abs().max()) if finite.any() else 0.0
+    if not torch.allclose(s_pf[finite], ex[finite], rtol=RTOL, atol=ATOL):
+        fail(f"prefiltered scores at scale differ from the exhaustive ones by up to {err}")
+    if recall < 0.95:
+        fail(f"prefilter recall@10 against the exhaustive scan {recall:.4f} below 0.95")
+    if stats["banded_segments"] < 1:
+        fail(f"no segment was scanned banded at scale: {stats}")
+    if not frac < policy.max_candidate_frac:
+        fail(f"candidate fraction {frac} not under max_candidate_frac "
+             f"{policy.max_candidate_frac}")
+    del truth
+    # parent-style interleaving: prefiltered, exhaustive, exhaustive, prefiltered, ...
+    times = {True: [], False: []}
+    for r in range(5):
+        for pf in ((True, False) if r % 2 == 0 else (False, True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.query(q, 10, prefilter=pf)[1].cpu()
+            times[pf].append(time.perf_counter() - t0)
+    qps_pf = queries / statistics.median(times[True])
+    qps_ex = queries / statistics.median(times[False])
+    stages = prefilter_stages(torch, engine, q)
+    print(f"prefilter at scale: {n_docs} clustered docs in {segments} segments (ingest "
+          f"{n_docs / t_ingest:.1f} docs/s), {queries} near-duplicate queries: recall@10 vs "
+          f"exhaustive {recall:.4f} (floor 0.95), candidate fraction {frac:.6f}, "
+          f"{stats['banded_segments']} banded segments; {qps_pf:.1f} q/s prefiltered vs "
+          f"{qps_ex:.1f} q/s exhaustive (ratio {qps_pf / qps_ex:.3f}); ms by stage of the "
+          f"prefiltered chunk (host clock, synced): {stages}")
+    return {"n_docs": n_docs, "n_bins": n_bins, "d": d, "nnz": nnz, "cluster": cluster,
+            "segments": segments, "queries": queries, "n_bands": policy.n_bands,
+            "max_candidate_frac": policy.max_candidate_frac, "recall_vs_exhaustive": recall,
+            "candidate_fraction": frac, **{k: int(v) for k, v in stats.items()},
+            "queries_per_s_prefilter": qps_pf, "queries_per_s_exhaustive": qps_ex,
+            "ratio": qps_pf / qps_ex, "ingest_docs_per_s": n_docs / t_ingest,
+            "band_hash_launches": launches["band_hash"], "max_abs_err": err,
+            "chunk_stage_ms": stages}
+
+
+def hash_mode_phase(torch, dev, spec, corpus, queries_np, truth_ids, n_bins: int):
+    """Phase 2e: hash-mode ingest through ``ops.hash_build_sketch``, served;
+    the hash_build kernel against its plain version. Returns its JSON row and
+    the readings."""
+    from repro_torch.core import BinSketchConfig, make_mapping, map_indices
+    from repro_torch.engine import QueryPlanner, SketchEngine
+    from repro_torch.hopper import ops, ref
+    from repro_torch.launch.serve import recall_at
+
+    n = len(corpus)
+    cfg = BinSketchConfig(d=spec.d, n_bins=n_bins, mode="hash")
+    coeffs = make_mapping(cfg, seed=0, device=dev)
+    engine = SketchEngine.build(cfg, coeffs, backend="cuda", capacity=n,
+                                planner=QueryPlanner(min_batch=8, max_batch=256))
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, n, 16384):
+        rows = torch.from_numpy(corpus[s : s + 16384]).to(dev)
+        engine.store.add_sketches(ops.hash_build_sketch(rows, coeffs, n_bins))
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    print(f"hash-mode ingest launches: {launches}")
+    if launches["hash_build"] < 1:
+        fail("kernel hash_build never launched on the hash-mode path")
+    err = 0.0
+    for s in range(0, n, 16384):  # every batch against map-then-build
+        rows = torch.from_numpy(corpus[s : s + 16384]).to(dev)
+        want = ops.build_sketch(map_indices(cfg, coeffs, rows), n_bins)
+        err = max(err, exact_err(torch, engine.store.sketches[s : s + len(rows)], want,
+                                 f"hash_build_sketch vs map_indices + build_sketch at batch "
+                                 f"{s // 16384}"))
+    queries = torch.from_numpy(queries_np).to(dev)
+    t0 = time.perf_counter()
+    ids = torch.cat([engine.query(queries[s : s + 256], 10)[1]
+                     for s in range(0, len(queries), 256)]).cpu().numpy()
+    t_serve = time.perf_counter() - t0
+    recall = recall_at(ids, truth_ids, 10)
+    if recall < 0.3:
+        fail(f"hash-mode recall@10 {recall:.3f} below 0.3")
+    warm = serve_warm(torch, engine, queries, None)
+    print(f"hash mode: {n} docs hash-built at N={n_bins} in {t_build:.3f}s "
+          f"({n / t_build:.1f} docs/s), every batch bit-equal to map-then-build; "
+          f"{len(queries)} queries, recall@10 vs exact Jaccard {recall:.4f} (floor 0.3), "
+          f"{len(queries) / t_serve:.1f} q/s first pass, {warm:.1f} q/s warm")
+
+    rows = torch.from_numpy(corpus[:16384]).to(dev)
+    cpu_coeffs = coeffs.cpu()
+    err = max(err, exact_err(torch, ops.hash_build_sketch(rows, coeffs, n_bins),
+                             ref.hash_build_ref(rows, coeffs, n_bins),
+                             "hash_build at the ingest shape"))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for b_, p_, n_ in [(1, 4, 32), (7, 33, 517), (5, 10, 20), (3, 9, 1), (64, 256, 4096),
+                       (300, 1000, 35000)]:
+        rb = torch.randint(0, (1 << 31) - 1, (b_, p_), generator=gen, device=dev,
+                           dtype=torch.int32)
+        lens = torch.randint(0, p_ + 1, (b_, 1), generator=gen, device=dev)
+        rb = torch.where(torch.arange(p_, device=dev)[None, :] < lens, rb, -1).to(torch.int32)
+        rb[0] = -1  # a row of pads only
+        got = ops.hash_build_sketch(rb, coeffs, n_)
+        err = max(err, exact_err(torch, got, ref.hash_build_ref(rb, cpu_coeffs, n_),
+                                 f"hash_build at {(b_, p_, n_)}"))
+        if got[0].any():
+            fail(f"hash_build set a bit from a row of pads at {(b_, p_, n_)}")
+    torch.cuda.synchronize()
+    print("hash_build vs plain: all agree (exact) at the ingest shape and ragged ones; "
+          "library_ms: none (no single PyTorch call does a packed bit-scatter)")
+    bsz, p = rows.shape
+    w = cfg.n_words
+    b_ms, b_by = bound_ms(4.0 * bsz * p + 4.0 * bsz * w, 3.0 * bsz * p)
+    row = {"name": "hash_build", "route": "cuda",
+           "source": "src/repro_torch/hopper/csrc/hash_build.cu",
+           "replaces": "src/repro/kernels/hash_build.py:48",
+           "launches": launches["hash_build"], "max_abs_err": err,
+           "ms": cuda_ms(torch, lambda: ops.hash_build_sketch(rows, coeffs, n_bins), 20),
+           "plain_ms": cuda_ms(torch, lambda: ref.hash_build_ref(rows, coeffs, n_bins), 3),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    readings = {"n_docs": n, "n_bins": n_bins, "build_s": t_build, "docs_per_s": n / t_build,
+                "queries_per_s": len(queries) / t_serve, "warm_queries_per_s": warm,
+                "recall": recall}
+    return row, readings
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-points", type=int, default=300_000,
                     help="corpus documents (default: the UCI NYTimes count)")
+    ap.add_argument("--prefilter-docs", type=int, default=1_000_000,
+                    help="clustered documents of the prefilter at serving scale (phase 2d; "
+                         "default: the JAX repo's run_prefilter default)")
     args = ap.parse_args(argv)
 
     import torch
@@ -373,6 +794,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.core import binsketch, packed as pk
     from repro_torch.data.synthetic import DATASETS
+    from repro_torch.engine import CudaBackend
     from repro_torch.hopper import build, ops, ref
     from repro_torch.launch.serve import serve
 
@@ -421,20 +843,34 @@ def main(argv=None) -> int:
     if not torch.equal(warm_ids.cpu(), torch.from_numpy(out["ids"][-len(warm_ids):])):
         fail("a repeated query batch returned other ids")
 
+    # the engine goes; phase 3 keeps its slab, cfg and map
+    cfg, mapping = engine.cfg, engine.store.mapping
+    corpus, fills = engine.store.sketches, engine.store.fills
+    del engine, out["engine"]
+    torch.cuda.empty_cache()
+
     # ---------------------------------------------------------- mutable path
     mut_rows, mut = mutable_phase(torch, dev, spec, out["n_bins"])
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------ banded prefilter
+    band_row, pf = prefilter_phase(torch, dev, spec)
+    torch.cuda.empty_cache()
+    pf["at_scale"] = prefilter_scale_phase(torch, dev, args.prefilter_docs)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------- hash mode
+    hash_row, hm = hash_mode_phase(torch, dev, spec, out["corpus"], out["queries"],
+                                   out["truth_ids"], out["n_bins"])
+    torch.cuda.empty_cache()
 
     # ------------------------------------------ kernels vs plain, main shapes
-    cfg, store = engine.cfg, engine.store
     n, w = cfg.n_bins, cfg.n_words
     corpus_rows = torch.from_numpy(out["corpus"][:16384]).to(dev)
-    bins = binsketch.map_indices(cfg, store.mapping, corpus_rows)
-    got_b, want_b = ops.build_sketch(bins, n), ref.build_sketch_ref(bins, n)
-    torch.cuda.synchronize()
-    if not torch.equal(got_b, want_b):
-        fail("build_sketch differs from its plain version at the ingest shape")
-    qs = engine.backend.sketch(cfg, store.mapping, torch.from_numpy(out["queries"][:256]).to(dev))
-    corpus, fills = store.sketches, store.fills
+    bins = binsketch.map_indices(cfg, mapping, corpus_rows)
+    build_err = exact_err(torch, ops.build_sketch(bins, n), ref.build_sketch_ref(bins, n),
+                          "build_sketch at the ingest shape")
+    qs = CudaBackend().sketch(cfg, mapping, torch.from_numpy(out["queries"][:256]).to(dev))
     qf = pk.row_popcount(qs)
     got_s = ops.sketch_score(qs, corpus, n, "jaccard", a_fills=qf, b_fills=fills)
     want_s = ref.sketch_score_ref(qs, corpus, n, "jaccard", a_fills=qf, b_fills=fills)
@@ -459,8 +895,9 @@ def main(argv=None) -> int:
         lens = torch.randint(0, p_ + 1, (b_, 1), generator=gen, device=dev)
         rb = torch.randint(0, n_ + 40, (b_, p_), generator=gen, device=dev, dtype=torch.int32)
         rb = torch.where(torch.arange(p_, device=dev)[None, :] < lens, rb, -1).to(torch.int32)
-        if not torch.equal(ops.build_sketch(rb, n_), ref.build_sketch_ref(rb, n_)):
-            fail(f"build_sketch differs at {(b_, p_, n_)}")
+        build_err = max(build_err, exact_err(torch, ops.build_sketch(rb, n_),
+                                             ref.build_sketch_ref(rb, n_),
+                                             f"build_sketch at {(b_, p_, n_)}"))
     for q_, c_, n_ in [(9, 130, 517), (130, 300, 1000), (1, 1, 32), (65, 4099, 2048)]:
         a, b = words(q_, n_, 0.1), words(c_, n_, 0.1)
         for m in ref.MEASURES:
@@ -495,7 +932,7 @@ def main(argv=None) -> int:
         "src/repro/kernels/sketch_build.py:51",
         cuda_ms(torch, lambda: ops.build_sketch(bins, n), 20),
         cuda_ms(torch, lambda: ref.build_sketch_ref(bins, n), 3),
-        4.0 * bsz * p + 4.0 * bsz * w, float(bsz * p), 0.0)
+        4.0 * bsz * p + 4.0 * bsz * w, float(bsz * p), build_err)
     row("sketch_score", "src/repro_torch/hopper/csrc/popcount_sim.cu",
         "src/repro/kernels/popcount_sim.py:120",
         cuda_ms(torch, lambda: ops.sketch_score(qs, corpus, n, "jaccard", a_fills=qf,
@@ -510,7 +947,7 @@ def main(argv=None) -> int:
         cuda_ms(torch, lambda: ref.sketch_topk_ref(qs, corpus, n, "jaccard", k=10,
                                                    a_fills=qf, b_fills=fills), 2),
         4.0 * (qn + cn) * (w + 1) + 8.0 * qn * 10, pair_ops, topk_err)
-    rows += mut_rows
+    rows += mut_rows + [band_row, hash_row]
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.2f} ms, bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']}, {r['launches']} launches)")
@@ -520,6 +957,8 @@ def main(argv=None) -> int:
                                                   "docs_per_s", "serve_s", "queries_per_s",
                                                   "warm_queries_per_s", "recall")}}))
     print(json.dumps({"mutable": mut}))
+    print(json.dumps({"prefilter": pf}))
+    print(json.dumps({"hash_mode": hm}))
 
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -16,6 +16,7 @@ import torch
 from . import resolve_device
 from .core import packed as pk
 from .core.binsketch import BinSketchConfig
+from .engine.banding import BandPolicy
 from .engine.segments import _HEAD, SealedSegment, SegmentedStore
 from .engine.store import SketchStore
 
@@ -78,19 +79,18 @@ def segmented_store_from_reference(tree: dict, aux: dict, device="cuda") -> Segm
     metadata dict. Head counters (u16 there) become int32, packed words keep
     their bits, distilled segments keep their width (``sealed_n_bins``), and
     the location map and live count are rebuilt from the tombstone bitmaps,
-    as the reference's ``restore`` does. The port has no banded prefilter
-    yet, so a store that carries a band policy is refused."""
+    as the reference's ``restore`` does. A band policy crosses too, and each
+    segment's index, which the reference never serializes, is rebuilt from
+    its slab (the same rows and hash give the same index)."""
     if aux.get("kind") != "segmented_store":
         raise ValueError(f"not a SegmentedStore snapshot: {aux.get('kind')!r}")
-    if aux.get("band_policy") is not None:
-        raise ValueError("the store carries a band policy; the port has no banded "
-                         "prefilter to serve it")
     dev = resolve_device(device)
     cfg = config_from_reference(**aux["cfg"])
     mapping = mapping_from_reference(tree["mapping"], cfg, dev)
     hr = int(aux["head_rows"])
     store = SegmentedStore.create(cfg, mapping, capacity=max(hr, 1),
-                                  seal_rows=aux["seal_rows"], ttl=aux.get("ttl"))
+                                  seal_rows=aux["seal_rows"], ttl=aux.get("ttl"),
+                                  band_policy=BandPolicy.from_aux(aux.get("band_policy")))
     store.next_id = int(aux["next_id"])
 
     def ints(a):
@@ -110,10 +110,11 @@ def segmented_store_from_reference(tree: dict, aux: dict, device="cuda") -> Segm
     widths = aux.get("sealed_n_bins") or [None] * len(tree["sealed"])
     for st, born, nb in zip(tree["sealed"], aux["sealed_born"], widths):
         n_words = pk.num_words(nb) if nb else cfg.n_words
+        sk = packed_from_reference(st["sketches"], dev).reshape(-1, n_words)
         store.sealed.append(SealedSegment(
-            packed_from_reference(st["sketches"], dev).reshape(-1, n_words),
-            ints(st["fills"]), np.array(st["ids"], np.int64), np.array(st["valid"], bool),
-            np.asarray(born, np.float64), n_bins=int(nb) if nb else None))
+            sk, ints(st["fills"]), np.array(st["ids"], np.int64), np.array(st["valid"], bool),
+            np.asarray(born, np.float64), n_bins=int(nb) if nb else None,
+            band_index=store._band_index_for(sk, int(sk.shape[0]))))
     for seg_i in range(len(store.sealed)):
         store._index_segment(seg_i)
     rows = np.nonzero(h.valid[:hr])[0]

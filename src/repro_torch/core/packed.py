@@ -23,6 +23,9 @@ __all__ = [
     "segment_or",
     "fold_packed",
     "or_rows",
+    "band_hash",
+    "band_hash_host",
+    "band_shape",
 ]
 
 _M1 = 0x55555555
@@ -30,6 +33,10 @@ _M2 = 0x33333333
 _M4 = 0x0F0F0F0F
 _H01 = 0x01010101
 _U32 = 0xFFFFFFFF
+
+_BAND_SEED = 0x9E3779B9  # golden-ratio odd constant; per-band seeds derive from it
+_BAND_PRIME = 0x85EBCA6B  # murmur3 fmix multiplier
+_PRIME_LO, _PRIME_HI = _BAND_PRIME & 0xFFFF, _BAND_PRIME >> 16
 
 # elements of the (Q, chunk, W) int64 intermediate of and_popcount_pairwise
 _PAIRWISE_CHUNK_ELEMS = 1 << 25
@@ -156,3 +163,70 @@ def or_rows(packed: torch.Tensor, axis: int = 0) -> torch.Tensor:
     wide = packed.to(torch.int64)
     return _or_reduce_bits(lambda b: ((wide >> b) & 1).amax(dim=axis), out_shape,
                            packed.device)
+
+
+def band_shape(n_words: int, n_bands: int):
+    """``(nb_eff, wpb)`` of the band hash over ``n_words`` words: ``n_bands``
+    clamps to ``[1, n_words]``, ``wpb = ceil(W / n_bands)`` words a band, and
+    ``nb_eff = ceil(W / wpb)`` bands, the count the keys really have."""
+    w = int(n_words)
+    n_bands = max(1, min(int(n_bands), w))
+    wpb = -(-w // n_bands)
+    return -(-w // wpb), wpb
+
+
+def _mul_prime(h: torch.Tensor) -> torch.Tensor:
+    """``h * PRIME mod 2^32`` for int64 ``h`` in ``[0, 2^32)``. The full
+    product reaches 2^64 and would overflow int64, so PRIME is split into
+    16-bit halves: ``h*lo < 2^48`` and ``(h*hi mod 2^16) << 16 < 2^32``."""
+    return (h * _PRIME_LO + (((h * _PRIME_HI) & 0xFFFF) << 16)) & _U32
+
+
+def band_hash(packed: torch.Tensor, n_bands: int) -> torch.Tensor:
+    """Hash contiguous word groups of packed (B, W) rows -> (B, nb_eff) band keys.
+
+    Band ``t`` covers words ``[t*wpb, (t+1)*wpb)`` (see :func:`band_shape`),
+    words past W read as zero, and the chain is, in uint32 wraparound,
+
+        h = SEED * (t + 1);  for each word: h = (h ^ word) * PRIME; h ^= h >> 15
+
+    as ``repro.core.packed.band_hash``. Two rows share band ``t``'s key iff
+    they agree on that whole word group (up to 2^-32 collisions). The keys
+    come back as int32 holding the uint32 bits, like packed words; the
+    arithmetic runs on int64 values in ``[0, 2^32)``, so ``>> 15`` is a
+    logical shift and the multiply is :func:`_mul_prime`'s."""
+    bsz, w = packed.shape
+    nb_eff, wpb = band_shape(w, n_bands)
+    words = packed.to(torch.int64) & _U32
+    pad = nb_eff * wpb - w
+    if pad:
+        words = torch.nn.functional.pad(words, (0, pad))
+    grp = words.reshape(bsz, nb_eff, wpb)
+    band = torch.arange(1, nb_eff + 1, dtype=torch.int64, device=packed.device)
+    h = ((band * _BAND_SEED) & _U32).expand(bsz, nb_eff)
+    for t in range(wpb):
+        h = _mul_prime(h ^ grp[:, :, t])
+        h = h ^ (h >> 15)
+    return _to_int32_bits(h)
+
+
+def band_hash_host(packed, n_bands: int):
+    """Numpy twin of :func:`band_hash` for host-side index builds: uint32
+    words in (a ``(B, W)`` array of uint32, or of int32 with the same bits),
+    ``(B, nb_eff)`` uint32 keys out, bit for bit the same."""
+    import numpy as np
+
+    packed = np.asarray(packed, dtype=np.uint32)  # int32 words: the cast keeps the bits
+    bsz, w = packed.shape
+    nb_eff, wpb = band_shape(w, n_bands)
+    pad = nb_eff * wpb - w
+    if pad:
+        packed = np.pad(packed, ((0, 0), (0, pad)))
+    grp = packed.reshape(bsz, nb_eff, wpb)
+    seeds = np.uint32(_BAND_SEED) * (np.arange(nb_eff, dtype=np.uint32) + np.uint32(1))
+    with np.errstate(over="ignore"):
+        h = np.broadcast_to(seeds.reshape(1, nb_eff), (bsz, nb_eff)).copy()
+        for t in range(wpb):
+            h = (h ^ grp[:, :, t]) * np.uint32(_BAND_PRIME)
+            h ^= h >> np.uint32(15)
+    return h

@@ -4,12 +4,14 @@
 |---|---|---|
 | SketchStore | store.py | packed corpus, incremental ingest, fill cache |
 | SegmentedStore | segments.py | counting head, sealed segments, tombstones, compaction, distillation |
+| BandPolicy, BandIndex | banding.py | the banded LSH prefilter's knobs and per-segment bucket index |
 | Backend registry | backends.py | reference / cuda behind one name |
 | QueryPlanner | planner.py | ragged batches -> bounded set of padded shapes |
-| SketchEngine | engine.py | build + add + lifecycle verbs + score_all + mixed-width query |
+| SketchEngine | engine.py | build + add + lifecycle verbs + score_all + mixed-width, prefiltered query |
 """
 
 from .backends import Backend, CudaBackend, ReferenceBackend, available_backends, get_backend
+from .banding import BandIndex, BandPolicy
 from .engine import SketchEngine, merge_segment_topk
 from .planner import QueryChunk, QueryPlanner
 from .segments import DistillPolicy, SealedSegment, SegmentedStore
@@ -17,6 +19,8 @@ from .store import SegmentView, SketchStore
 
 __all__ = [
     "Backend",
+    "BandIndex",
+    "BandPolicy",
     "CudaBackend",
     "DistillPolicy",
     "QueryChunk",

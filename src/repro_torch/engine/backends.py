@@ -2,8 +2,9 @@
 
 A backend owns the data path behind one name — *sketch* (construction),
 *count* (the counting head's per-bin occupancy), *score* (AND-popcount +
-estimator epilogue), *topk* (score -> k best per query) and *rebucket* (the
-N -> N' fold that meets distilled segments):
+estimator epilogue), *topk* (score -> k best per query), *rebucket* (the
+N -> N' fold that meets distilled segments) and *band_hash* (the banded
+prefilter's LSH keys):
 
   * ``reference``     plain PyTorch (scatter build, materialized scoring, a
                       chunked top-k) — the counterpart of the JAX ``oracle``.
@@ -68,6 +69,13 @@ class Backend(Protocol):
         under ``pi mod n_bins_new``."""
         ...
 
+    def band_hash(self, packed: torch.Tensor, n_bands: int) -> torch.Tensor:
+        """Packed (B, W) rows -> (B, nb_eff) LSH band keys (int32 holding
+        uint32 bits). Band ``t`` hashes words ``[t*wpb, (t+1)*wpb)``, ``wpb =
+        ceil(W / n_bands)``; two rows collide on a band iff that word group
+        is identical. ``n_bands`` clamps to W: size off the output."""
+        ...
+
 
 def _sorted_topk(s: torch.Tensor, k: int, corpus_valid: Optional[torch.Tensor]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -126,6 +134,9 @@ class ReferenceBackend:
     def rebucket(self, packed, n_bins, n_bins_new):
         return pk.fold_packed(packed, n_bins, n_bins_new)
 
+    def band_hash(self, packed, n_bands):
+        return pk.band_hash(packed, n_bands)
+
 
 class CudaBackend:
     """The Hopper kernels (the JAX package's ``pallas`` backend).
@@ -164,6 +175,9 @@ class CudaBackend:
 
     def rebucket(self, packed, n_bins, n_bins_new):
         return ops.rebucket(packed, int(n_bins), int(n_bins_new))
+
+    def band_hash(self, packed, n_bands):
+        return ops.band_hash(packed, int(n_bands))
 
 
 _REGISTRY: Dict[str, Callable[[], Backend]] = {

@@ -16,9 +16,13 @@ The paper's §IV-B ranking experiment as a service, composed of:
 segment view, so on the ``cuda`` backend at serving sizes no (Q, C) score
 matrix is ever stored. Serving is mixed-width: a distilled segment lives at
 a smaller width N', and the chunk's query sketches are folded to N' once per
-distinct width (``Backend.rebucket``) before that view is scored. The
-prefilter, placement, background jobs and telemetry of the JAX engine come in
-later slices.
+distinct width (``Backend.rebucket``) before that view is scored. With a
+:class:`~repro_torch.engine.banding.BandPolicy` on a mutable store, indexed
+sealed segments score only the rows that share a band key with a query of
+the chunk (the banded prefilter, ``query(prefilter=...)``). Placement,
+background jobs, supervision and telemetry of the JAX engine come in later
+slices; without a supervisor, a failure in the prefilter propagates instead
+of degrading to the exhaustive scan.
 """
 
 from __future__ import annotations
@@ -27,13 +31,15 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core import binsketch
 from . import backends as backends_mod
 from .backends import Backend
+from .banding import BandPolicy
 from .planner import QueryPlanner
-from .segments import DistillPolicy, SegmentedStore
+from .segments import DistillPolicy, SealedSegment, SegmentedStore
 from .store import SegmentView, SketchStore, as_index_tensor
 
 __all__ = ["SketchEngine", "merge_segment_topk"]
@@ -65,6 +71,11 @@ class SketchEngine:
     backend: Backend
     measure: str = "jaccard"
     planner: QueryPlanner = dataclasses.field(default_factory=QueryPlanner)
+    # the last prefiltered query's candidate accounting (rows of indexed
+    # segments, candidate rows, and the segments scanned banded, through the
+    # escape hatch, or unindexed); None until a prefiltered query runs
+    last_prefilter_stats: Optional[dict] = dataclasses.field(default=None, init=False,
+                                                             repr=False)
 
     # ------------------------------------------------------------ construct
     @classmethod
@@ -72,18 +83,23 @@ class SketchEngine:
               corpus_idx=None, *, backend=None, measure: str = "jaccard",
               planner: Optional[QueryPlanner] = None, capacity: int = 1024,
               batch: int = 4096, mutable: bool = False, seal_rows: Optional[int] = None,
-              ttl: Optional[float] = None) -> "SketchEngine":
+              ttl: Optional[float] = None,
+              band_policy: Optional[BandPolicy] = None) -> "SketchEngine":
         """Create an engine on ``mapping``'s device; ``corpus_idx`` (C, P) is
         ingested if given, otherwise the engine starts empty and is fed via
         :meth:`add`. ``mutable=True`` builds over a :class:`SegmentedStore`;
-        ``seal_rows`` auto-seals its head at that many rows and ``ttl`` arms
-        lazy expiry for queries that carry a ``now``."""
+        ``seal_rows`` auto-seals its head at that many rows, ``ttl`` arms
+        lazy expiry for queries that carry a ``now``, and ``band_policy``
+        arms the banded prefilter: sealed segments grow bucket indexes and
+        queries scan only colliding buckets."""
         be = backends_mod.get_backend(backend)
-        if (seal_rows is not None or ttl is not None) and not mutable:
-            raise ValueError("seal_rows/ttl require mutable=True (an append-only "
-                             "SketchStore has no head to seal and no clock)")
+        if (seal_rows is not None or ttl is not None
+                or band_policy is not None) and not mutable:
+            raise ValueError("seal_rows/ttl/band_policy require mutable=True (an "
+                             "append-only SketchStore has no head to seal, no clock, "
+                             "no sealed segments to band)")
         if mutable:
-            kw = {"seal_rows": seal_rows, "ttl": ttl}
+            kw = {"seal_rows": seal_rows, "ttl": ttl, "band_policy": band_policy}
             if corpus_idx is not None:
                 store = SegmentedStore.from_indices(cfg, mapping, corpus_idx, backend=be,
                                                     batch=batch, **kw)
@@ -136,12 +152,14 @@ class SketchEngine:
         self._mutable_store().retract_rows(doc_ids, idx, backend=self.backend)
 
     def seal(self):
-        """Freeze the counting head into a packed sealed segment."""
-        return self._mutable_store().seal()
+        """Freeze the counting head into a packed sealed segment (its band
+        index, if the policy wants one, hashed through this backend)."""
+        return self._mutable_store().seal(backend=self.backend)
 
     def compact(self):
-        """Merge sealed segments per width, dropping tombstones; returns stats."""
-        return self._mutable_store().compact()
+        """Merge sealed segments per width, dropping tombstones (fresh band
+        indexes hashed through this backend); returns stats."""
+        return self._mutable_store().compact(backend=self.backend)
 
     def expire(self, ttl: float, now: float) -> int:
         """Tombstone docs with ``born + ttl <= now``."""
@@ -226,26 +244,163 @@ class SketchEngine:
             ix = torch.where(ix >= 0, v.ids[ix.clamp_min(0).to(torch.int64)], ix)
         return sc, ix
 
-    def query(self, query_idx, k: int, *, now: Optional[float] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    # -------------------------------------------------------- banded prefilter
+    def _query_band_keys(self, qs: torch.Tensor, n_bins: int, rows: int, width_cache: dict,
+                         qkeys_cache: dict) -> np.ndarray:
+        """(rows, nb_eff) uint32 host band keys of the chunk's first ``rows``
+        query rows at width ``n_bins``, hashed once per width per chunk
+        (``qkeys_cache``: width -> keys of the whole padded chunk). Only real
+        rows are returned: a pad row's zero sketch hashes like an empty word
+        group and would pull that bucket into every padded chunk."""
+        got = qkeys_cache.get(n_bins)
+        if got is None:
+            q_w = self._rebucket_queries(qs, n_bins, width_cache)
+            keys = self.backend.band_hash(q_w, self.store.band_policy.n_bands)
+            got = qkeys_cache[n_bins] = keys.cpu().numpy().view(np.uint32)
+        return got[:rows]
+
+    def _segment_candidates(self, seg: SealedSegment, qkeys: np.ndarray,
+                            now: Optional[float]) -> Optional[np.ndarray]:
+        """Live candidate rows of one indexed segment for the chunk, ascending;
+        None when the escape hatch fires (the union outgrew
+        ``max_candidate_frac`` of the segment, and the exhaustive scan is the
+        better deal). Dead and TTL-expired rows stay in their buckets and are
+        dropped here against the current host bitmaps, the predicate the
+        exhaustive views apply."""
+        store: SegmentedStore = self.store
+        cand = seg.band_index.candidates(qkeys)
+        if len(cand):
+            cand = cand[seg.valid[cand]]
+            if store.ttl is not None and now is not None:
+                cand = cand[seg.born[cand] + store.ttl > now]
+        if len(cand) > store.band_policy.max_candidate_frac * seg.n_rows:
+            return None
+        return cand
+
+    def _gathered_part(self, qs: torch.Tensor, seg: SealedSegment, cand: np.ndarray, k: int,
+                       width_cache: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Top-k over a gather of one segment's candidate rows.
+
+        The rows are padded to the planner's candidate bucket (a bounded set
+        of slab shapes; pad rows repeat row 0 and are masked out) and
+        gathered into a compact slab, so the scoring kernel reads
+        O(|candidates|) rows, not O(C). ``cand`` ascends and segment rows
+        ascend in id, so the slab keeps position order == id order, and a
+        surviving id scores exactly as in the exhaustive scan (same kernel
+        path, width and fills)."""
+        nb = seg.n_bins if seg.n_bins is not None else self.cfg.n_bins
+        q_w = self._rebucket_queries(qs, nb, width_cache)
+        n = len(cand)
+        padded = self.planner.candidate_bucket(n, seg.n_rows)
+        rows_np = np.zeros(padded, np.int64)
+        rows_np[:n] = cand
+        rows = torch.from_numpy(rows_np).to(self.device)
+        vmask = torch.from_numpy((np.arange(padded) < n).astype(np.int32)).to(self.device)
+        sc, ix = self.backend.topk(q_w, seg.sketches.index_select(0, rows), nb, self.measure,
+                                   k, corpus_fills=seg.fills.index_select(0, rows),
+                                   corpus_valid=vmask)
+        gids = np.full(padded, -1, np.int32)
+        gids[:n] = seg.ids[cand]
+        gid_dev = torch.from_numpy(gids).to(self.device)
+        return sc, torch.where(ix >= 0, gid_dev[ix.clamp_min(0).to(torch.int64)], ix)
+
+    def _prefiltered_topk(self, qs: torch.Tensor, rows: int, k: int, *,
+                          now: Optional[float], width_cache: dict, qkeys_cache: dict,
+                          stats: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One planner chunk, banded: indexed sealed segments score only their
+        candidates; unindexed segments (below ``min_rows``, or sealed before
+        the policy), escape-hatch segments and the head score in full. The
+        parts merge under the one (score desc, id asc) order: the prefilter
+        changes which rows score, never how they score."""
+        store: SegmentedStore = self.store
+        parts_s, parts_i = [], []
+        for seg in store.sealed:
+            if seg.n_rows == 0:
+                continue
+            if seg.band_index is None:
+                stats["unindexed_segments"] += 1
+                sc, ix = self._view_part(qs, seg.view(store.ttl, now), k, width_cache)
+            else:
+                nb = seg.n_bins if seg.n_bins is not None else self.cfg.n_bins
+                qkeys = self._query_band_keys(qs, nb, rows, width_cache, qkeys_cache)
+                cand = self._segment_candidates(seg, qkeys, now)
+                stats["seg_rows"] += seg.n_rows
+                if cand is None:
+                    stats["exhaustive_segments"] += 1
+                    stats["cand_rows"] += seg.n_rows
+                    sc, ix = self._view_part(qs, seg.view(store.ttl, now), k, width_cache)
+                else:
+                    stats["banded_segments"] += 1
+                    stats["cand_rows"] += len(cand)
+                    if len(cand) == 0:
+                        continue  # nothing to score in this segment
+                    sc, ix = self._gathered_part(qs, seg, cand, k, width_cache)
+            parts_s.append(sc)
+            parts_i.append(ix)
+        hv = store.head_view(now)
+        if hv is not None:  # head rows are unbanded: always scored
+            sc, ix = self._view_part(qs, hv, k, width_cache)
+            parts_s.append(sc)
+            parts_i.append(ix)
+        if not parts_s:
+            return (torch.full((qs.shape[0], k), -math.inf, device=qs.device),
+                    torch.full((qs.shape[0], k), -1, dtype=torch.int32, device=qs.device))
+        if len(parts_s) == 1:
+            return parts_s[0], parts_i[0]
+        return merge_segment_topk(parts_s, parts_i, k)
+
+    def _resolve_prefilter(self, prefilter: Optional[bool]) -> bool:
+        on = isinstance(self.store, SegmentedStore) and self.store.band_policy is not None
+        if prefilter is None:
+            return on
+        if prefilter and not on:
+            raise ValueError("prefilter=True needs a mutable store built with a band_policy "
+                             "(SketchEngine.build(..., mutable=True, "
+                             "band_policy=BandPolicy(...)))")
+        return bool(prefilter)
+
+    @staticmethod
+    def _fresh_prefilter_stats() -> dict:
+        return {"seg_rows": 0, "cand_rows": 0, "banded_segments": 0,
+                "exhaustive_segments": 0, "unindexed_segments": 0}
+
+    def query(self, query_idx, k: int, *, now: Optional[float] = None,
+              prefilter: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """(Q, P) padded query rows -> (scores (Q, k) float32, ids (Q, k) int32).
 
         Each planner chunk is sketched and streamed through ``Backend.topk``
         per view; ids are global doc ids, stable across seal, compaction and
         distillation. If ``k`` exceeds the live corpus the tail slots hold
         score -inf / id -1. ``now`` is the query-time clock of lazy TTL expiry
-        on a mutable store with a ``ttl``."""
+        on a mutable store with a ``ttl``.
+
+        ``prefilter`` gates the banded prefilter: ``None`` turns it on when
+        the store carries a band policy, ``False`` forces the exhaustive scan
+        (the recall baseline), ``True`` insists and raises without a policy.
+        When on, results are the exact top-k over the candidate rows, with the
+        exhaustive scan's scores for every surviving id, and
+        :attr:`last_prefilter_stats` holds the candidate accounting."""
         query_idx = as_index_tensor(query_idx, self.device)
         n_q = int(query_idx.shape[0])
         if n_q == 0:
             return (torch.zeros((0, k), dtype=torch.float32, device=self.device),
                     torch.full((0, k), -1, dtype=torch.int32, device=self.device))
-        views = self.store.segment_views(now=now)
+        banded = self._resolve_prefilter(prefilter)
+        views = None if banded else self.store.segment_views(now=now)
+        stats = self._fresh_prefilter_stats() if banded else None
         out_s, out_i = [], []
         for chunk in self.planner.plan(n_q):
             qs = self._padded_query_sketches(
                 query_idx[chunk.start : chunk.start + chunk.rows], chunk.padded)
-            sc, ix = self._views_topk(qs, views, k)
+            if banded:
+                # per-chunk caches: the folded and hashed query blocks belong
+                # to this chunk's rows
+                sc, ix = self._prefiltered_topk(qs, chunk.rows, k, now=now, width_cache={},
+                                                qkeys_cache={}, stats=stats)
+            else:
+                sc, ix = self._views_topk(qs, views, k)
             out_s.append(sc[: chunk.rows])
             out_i.append(ix[: chunk.rows])
+        if banded:
+            self.last_prefilter_stats = stats
         return torch.cat(out_s, dim=0), torch.cat(out_i, dim=0)

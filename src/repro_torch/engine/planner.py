@@ -1,6 +1,6 @@
 """Query planner — ragged batches onto a small set of padded shapes.
 
-A copy of ``repro.engine.planner``'s batch bucketing. The batch axis is padded
+A copy of ``repro.engine.planner``'s batch bucketing and candidate bucket. The batch axis is padded
 to the next power of two inside ``[min_batch, max_batch]`` and oversized
 batches split into ``max_batch`` chunks, so the kernels see a bounded set of
 shapes. Pad rows are all ``-1`` indices: they sketch to zero rows, score 0
@@ -13,6 +13,9 @@ import dataclasses
 from typing import List, Tuple
 
 __all__ = ["QueryPlanner", "QueryChunk"]
+
+# the least padded row count of a candidate gather: small unions share one shape
+_CANDIDATE_FLOOR = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,3 +60,14 @@ class QueryPlanner:
         for n in sizes:
             seen.update(c.padded for c in self.plan(n))
         return tuple(sorted(seen))
+
+    def candidate_bucket(self, n: int, cap: int) -> int:
+        """Padded row count of a banded-prefilter candidate gather: the next
+        power of two >= ``n``, floored at ``_CANDIDATE_FLOOR`` (small unions
+        share one shape) and capped at ``cap``, the segment's row count."""
+        if cap < 1:
+            return 0
+        b = max(min(_CANDIDATE_FLOOR, cap), 1)
+        while b < n and b < cap:
+            b *= 2
+        return min(b, cap)

@@ -21,7 +21,11 @@ log-structured layout of the reference:
   * **distillation** (:meth:`SegmentedStore.distill`): a sealed segment
     re-sketched from width N to a smaller N' by OR-folding bin ``j`` into
     ``j mod N'`` over the packed slab alone, as a :class:`DistillPolicy`
-    decides. Serving becomes mixed-width: each view carries its ``n_bins``.
+    decides. Serving becomes mixed-width: each view carries its ``n_bins``;
+  * the **banded prefilter** (:mod:`.banding`): with a ``band_policy``, every
+    sealed segment of at least ``min_rows`` rows gets a :class:`BandIndex`
+    over its slab when it is made (seal, ``seal_sketches``, compaction,
+    distillation), and the engine's queries scan only colliding buckets.
 
 Invariants, as in the reference: ``_loc[gid] == (segment, row)`` for exactly
 the live docs; a row is retrievable iff ``valid and (ttl is None or now is
@@ -47,6 +51,7 @@ import torch
 
 from ..core import binsketch, counting
 from ..core import packed as pk
+from .banding import BandIndex, BandPolicy
 from .store import SegmentView, _grow, as_index_tensor
 
 __all__ = ["DistillPolicy", "SealedSegment", "SegmentedStore"]
@@ -163,6 +168,11 @@ class SealedSegment:
     valid: np.ndarray  # (n,) bool; False = tombstoned
     born: np.ndarray  # (n,) float64 birth stamps
     n_bins: Optional[int] = None  # sketch width; None = store base width
+    # the banded prefilter's index over this slab's rows, built with the
+    # segment and immutable with it: tombstones leave it alone (dead
+    # candidates are dropped at query time against ``valid``), and every
+    # rewrite makes a new segment with a fresh index
+    band_index: Optional[BandIndex] = None
 
     def __post_init__(self):
         self._ids_dev: Optional[torch.Tensor] = None
@@ -373,6 +383,9 @@ class SegmentedStore:
     next_id: int = 0
     seal_rows: Optional[int] = None  # auto-seal the head at this many rows
     ttl: Optional[float] = None  # lazy query-time expiry horizon (units of `now`)
+    # arms the banded prefilter: sealed segments >= min_rows get a BandIndex
+    # (the head stays unbanded and is always scored)
+    band_policy: Optional[BandPolicy] = None
     _loc: Dict[int, Tuple[int, int]] = dataclasses.field(default_factory=dict)
     _n_live: int = 0
 
@@ -380,17 +393,19 @@ class SegmentedStore:
     @classmethod
     def create(cls, cfg: binsketch.BinSketchConfig, mapping: torch.Tensor,
                capacity: int = 1024, seal_rows: Optional[int] = None,
-               ttl: Optional[float] = None) -> "SegmentedStore":
+               ttl: Optional[float] = None,
+               band_policy: Optional[BandPolicy] = None) -> "SegmentedStore":
         head = _Head.create(cfg.n_bins, cfg.n_words, capacity, mapping.device)
-        return cls(cfg, mapping, [], head, seal_rows=seal_rows, ttl=ttl)
+        return cls(cfg, mapping, [], head, seal_rows=seal_rows, ttl=ttl,
+                   band_policy=band_policy)
 
     @classmethod
     def from_indices(cls, cfg: binsketch.BinSketchConfig, mapping: torch.Tensor,
                      corpus_idx, *, backend=None, batch: int = 4096, now: float = 0.0,
-                     seal_rows: Optional[int] = None,
-                     ttl: Optional[float] = None) -> "SegmentedStore":
+                     seal_rows: Optional[int] = None, ttl: Optional[float] = None,
+                     band_policy: Optional[BandPolicy] = None) -> "SegmentedStore":
         store = cls.create(cfg, mapping, capacity=max(int(corpus_idx.shape[0]), 1),
-                           seal_rows=seal_rows, ttl=ttl)
+                           seal_rows=seal_rows, ttl=ttl, band_policy=band_policy)
         store.add(corpus_idx, backend=backend, batch=batch, now=now)
         return store
 
@@ -484,7 +499,7 @@ class SegmentedStore:
         return counting.count_indices_dense(self.cfg, self.mapping, idx)
 
     def _insert_counts(self, counts: torch.Tensor, *, ids: Optional[np.ndarray] = None,
-                       now, exact: bool) -> range:
+                       now, exact: bool, backend=None) -> range:
         b = int(counts.shape[0])
         if b == 0:
             return range(self.next_id, self.next_id)
@@ -495,7 +510,7 @@ class SegmentedStore:
         self._loc.update(zip(ids.tolist(), ((_HEAD, row) for row in rows)))
         self._n_live += b
         if self.seal_rows is not None and self.head.size >= self.seal_rows:
-            self.seal()
+            self.seal(backend=backend)
         return rows
 
     def add(self, idx, *, backend=None, batch: int = 4096, now: float = 0.0) -> range:
@@ -504,7 +519,7 @@ class SegmentedStore:
         lo = self.next_id
         for s in range(0, idx.shape[0], batch):
             self._insert_counts(self._count_rows(idx[s : s + batch], backend),
-                                now=now, exact=True)
+                                now=now, exact=True, backend=backend)
         return range(lo, self.next_id)
 
     def add_sketches(self, sketches: torch.Tensor, *, now: float = 0.0) -> range:
@@ -597,7 +612,7 @@ class SegmentedStore:
             sel = np.nonzero(~in_head)[0]
             self._relocate(ids, locs, sel)
             self._insert_counts(counts[torch.from_numpy(sel).to(self.device)],
-                                ids=ids[sel], now=now, exact=True)
+                                ids=ids[sel], now=now, exact=True, backend=backend)
 
     def _combine_duplicates(self, ids: np.ndarray, deltas: torch.Tensor):
         """Sum the deltas of repeated ids in one batch: ``(unique ids, deltas)``."""
@@ -632,7 +647,7 @@ class SegmentedStore:
                       + deltas[torch.from_numpy(sel).to(self.device)])
             born = np.array([self.sealed[locs[i][0]].born[locs[i][1]] for i in sel])
             self._relocate(ids, locs, sel)
-            self._insert_counts(merged, ids=ids[sel], now=born, exact=False)
+            self._insert_counts(merged, ids=ids[sel], now=born, exact=False, backend=backend)
 
     def retract_rows(self, doc_ids: Sequence[int], idx, *, backend=None) -> None:
         """Decrement elements out of head docs: a bin clears exactly when its
@@ -705,10 +720,26 @@ class SegmentedStore:
         rows = np.nonzero(seg.valid)[0]
         self._loc.update(zip(seg.ids[rows].tolist(), ((seg_i, int(r)) for r in rows)))
 
-    def seal(self) -> Optional[SealedSegment]:
+    def _band_index_for(self, sketches: torch.Tensor, n_rows: int,
+                        backend=None) -> Optional[BandIndex]:
+        """A :class:`BandIndex` over a freshly made slab when the band policy
+        wants one, else None. The keys come from ``backend.band_hash`` when a
+        backend is given (the engine passes its own, so on the ``cuda``
+        backend the kernel hashes) and from the plain ``pk.band_hash``
+        otherwise, as the reference's oracle: bit-identical either way. A
+        failure propagates."""
+        bp = self.band_policy
+        if bp is None or not bp.wants_index(n_rows):
+            return None
+        hash_fn = backend.band_hash if backend is not None else pk.band_hash
+        keys = hash_fn(sketches, bp.n_bands)
+        return BandIndex.build(keys.cpu().numpy())
+
+    def seal(self, *, backend=None) -> Optional[SealedSegment]:
         """Freeze the head into a sealed segment (its tombstoned rows are
         dropped here) and start a fresh head of the same capacity. Counters
-        are discarded: sealed rows live packed-only from now on."""
+        are discarded: sealed rows live packed-only from now on. With a band
+        policy the new segment's index is built here, over exactly its rows."""
         h = self.head
         if h.size == 0:
             return None
@@ -716,16 +747,19 @@ class SegmentedStore:
         seg = None
         if got is not None:
             sk, fl, ids, born = got
-            seg = SealedSegment(sk, fl, ids, np.ones(len(ids), bool), born)
+            seg = SealedSegment(sk, fl, ids, np.ones(len(ids), bool), born,
+                                band_index=self._band_index_for(sk, len(ids), backend))
             self.sealed.append(seg)
             self._index_segment(len(self.sealed) - 1)
         self.head = _Head.create(self.cfg.n_bins, self.cfg.n_words, h.capacity, self.device)
         return seg
 
-    def seal_sketches(self, sketches: torch.Tensor, *, now: float = 0.0) -> range:
+    def seal_sketches(self, sketches: torch.Tensor, *, now: float = 0.0,
+                      backend=None) -> range:
         """Bulk-ingest pre-packed int32 rows straight into a sealed segment,
         bypassing the counting head (whose counters cost ``4*N`` bytes a
-        doc); returns the fresh ids, assigned in row order."""
+        doc); returns the fresh ids, assigned in row order. The band index,
+        policy permitting, is built here as at a seal."""
         b = int(sketches.shape[0])
         if b == 0:
             return range(self.next_id, self.next_id)
@@ -737,8 +771,9 @@ class SegmentedStore:
         sketches = sketches.to(self.device).contiguous()
         ids = np.arange(self.next_id, self.next_id + b, dtype=np.int64)
         self.next_id += b
-        self.sealed.append(SealedSegment(sketches, pk.row_popcount(sketches), ids,
-                                         np.ones(b, bool), np.full(b, float(now))))
+        self.sealed.append(SealedSegment(
+            sketches, pk.row_popcount(sketches), ids, np.ones(b, bool), np.full(b, float(now)),
+            band_index=self._band_index_for(sketches, b, backend)))
         self._index_segment(len(self.sealed) - 1)
         self._n_live += b
         return range(int(ids[0]), int(ids[-1]) + 1)
@@ -749,10 +784,11 @@ class SegmentedStore:
         narrow = sorted((x for x in seen if x is not None), reverse=True)
         return [w for w in (None, *narrow) if w in seen]
 
-    def compact(self) -> Dict[str, int]:
+    def compact(self, *, backend=None) -> Dict[str, int]:
         """Merge sealed segments per sketch width, dropping tombstoned rows;
-        rows come out sorted by global id, one segment per width. The head is
-        untouched (seal first for a full compaction)."""
+        rows come out sorted by global id, one segment per width, each with a
+        fresh band index, hashed through ``backend``, when the policy wants
+        one. The head is untouched (seal first for a full compaction)."""
         stats = {"segments_in": len(self.sealed),
                  "rows_in": sum(s.n_rows for s in self.sealed), "rows_out": 0, "groups": 0}
         if not self.sealed:
@@ -766,7 +802,9 @@ class SegmentedStore:
                 continue
             sk, fl, ids, born = got
             new_sealed.append(SealedSegment(sk, fl, ids, np.ones(len(ids), bool), born,
-                                            n_bins=width))
+                                            n_bins=width,
+                                            band_index=self._band_index_for(sk, len(ids),
+                                                                            backend)))
         self.sealed = new_sealed
         for seg_i in range(len(self.sealed)):
             self._index_segment(seg_i)
@@ -780,7 +818,9 @@ class SegmentedStore:
 
         Each segment folds on its own (no cross-segment merge): dead rows
         are dropped, the live rows OR-folded N -> N' on the host
-        (:func:`_fold_packed_host`), fills re-counted. The result goes in
+        (:func:`_fold_packed_host`), fills re-counted, and, with a band
+        policy, a fresh index built on the host from the folded words (the
+        base-width buckets never serve the narrower rows). The result goes in
         through :meth:`_swap`, which reconciles against the source
         tombstones (the uint32 words the fold returns are the same bits as
         the device's int32 ones).
@@ -804,11 +844,14 @@ class SegmentedStore:
             keep = np.nonzero(seg.valid)[0]  # ascending rows: ids stay in order
             host = seg.sketches.cpu().numpy().view(np.uint32)
             folded, fills = _fold_packed_host(host[keep], cur, tgt)
+            bp = self.band_policy
             results.append({
                 "group": [i], "n_bins": tgt, "rows_in": seg.n_rows,
                 "sketches": folded, "fills": fills,
                 "ids": seg.ids[keep], "born": seg.born[keep].copy(),
                 "src_seg": np.full(len(keep), i, np.int64), "src_row": keep.astype(np.int64),
+                "band_index": (BandIndex.build_from_packed(folded, bp.n_bands)
+                               if bp is not None and bp.wants_index(len(keep)) else None),
             })
         return self._swap([self.sealed[i] for i, _ in plan], results)
 
@@ -839,7 +882,7 @@ class SegmentedStore:
             words = torch.from_numpy(np.ascontiguousarray(r["sketches"]).view(np.int32))
             new_sealed.append(SealedSegment(
                 words.to(self.device), torch.from_numpy(r["fills"]).to(self.device),
-                r["ids"], live, r["born"], n_bins=r["n_bins"]))
+                r["ids"], live, r["born"], n_bins=r["n_bins"], band_index=r["band_index"]))
             stats["rows_out"] += n
         new_sealed.extend(s for s in self.sealed if id(s) not in replaced)
         self.sealed = new_sealed

@@ -28,7 +28,8 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "check", "library",
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("sketch_build", "popcount_sim", "topk_stream", "count_bins", "rebucket")
+SOURCES = ("sketch_build", "popcount_sim", "topk_stream", "count_bins", "rebucket",
+           "band_hash", "hash_build")
 # --fmad=false keeps the float epilogue free of contracted multiply-adds, so
 # it rounds where the plain version does; no fast math
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -64,6 +65,14 @@ _SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "rebucket": {
         # src, B, W, n_bins, n_bins_new, W_new, out, stream
         "rebucket": (_VOIDP, _INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP),
+    },
+    "band_hash": {
+        # src, B, W, nb_eff, wpb, out, stream
+        "band_hash": (_VOIDP, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP),
+    },
+    "hash_build": {
+        # idx, B, P, coeffs, n_bins, W, out, stream
+        "hash_build": (_VOIDP, _INT, _INT, _VOIDP, _INT, _INT, _VOIDP, _VOIDP),
     },
 }
 

@@ -7,6 +7,10 @@
   counting head's insert and retract deltas).
 * :func:`rebucket` — packed rows folded from N to N' bins (queries meeting a
   distilled segment).
+* :func:`band_hash` — banded LSH keys of packed rows (the prefilter's index
+  and query keys).
+* :func:`hash_build_sketch` — raw indices -> packed words in hash mode, the
+  multiply-shift map fused into the build.
 
 Packed words are int32 tensors holding uint32 bits; any other dtype raises
 ``TypeError`` (the reference raises on non-uint32). ``a_fills``/``b_fills``
@@ -26,18 +30,19 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..core import packed as pk
+from . import band_hash as band_hash_mod
 from . import count_bins as count_bins_mod
-from . import popcount_sim, ref, sketch_build, topk_stream
+from . import hash_build, popcount_sim, ref, sketch_build, topk_stream
 from . import rebucket as rebucket_mod
 
-__all__ = ["MAX_K", "build_sketch", "count_bins", "launches", "rebucket",
-           "reset_launches", "sketch_score", "sketch_topk"]
+__all__ = ["MAX_K", "band_hash", "build_sketch", "count_bins", "hash_build_sketch",
+           "launches", "rebucket", "reset_launches", "sketch_score", "sketch_topk"]
 
 # largest k the streaming kernel takes (its per-query lists live in shared memory)
 MAX_K = topk_stream.MAX_K_PAD
 
 launches: Dict[str, int] = {"build_sketch": 0, "sketch_score": 0, "sketch_topk": 0,
-                            "count_bins": 0, "rebucket": 0}
+                            "count_bins": 0, "rebucket": 0, "band_hash": 0, "hash_build": 0}
 
 
 def reset_launches() -> None:
@@ -73,6 +78,26 @@ def build_sketch(bins: torch.Tensor, n_bins: int) -> torch.Tensor:
         return torch.empty((0, pk.num_words(n_bins)), dtype=torch.int32, device=bins.device)
     out = sketch_build.launch(bins, n_bins)
     launches["build_sketch"] += 1
+    return out
+
+
+def hash_build_sketch(idx: torch.Tensor, coeffs: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """Raw padded indices (B, P) int32 and multiply-shift coefficients ``(a,
+    b)`` -> packed sketches (B, ceil(N/32)), each index mapped to ``((a*i + b)
+    mod 2^32) mod N`` inside the kernel: the path for huge d, where no Ψ table
+    exists. ``coeffs`` is a (2,) integer tensor of uint32 values (the port's
+    hash-mode mapping: int64). Pads (-1) set no bit; bits ``>= N`` stay zero."""
+    if idx.dtype != torch.int32:
+        raise TypeError(f"indices must be int32, got {idx.dtype}")
+    if tuple(coeffs.shape) != (2,) or coeffs.is_floating_point():
+        raise TypeError(f"coeffs must be a (2,) integer tensor, got {coeffs.dtype} "
+                        f"{tuple(coeffs.shape)}")
+    if idx.device.type == "cpu":
+        return ref.hash_build_ref(idx, coeffs, n_bins)
+    if idx.shape[0] == 0:
+        return torch.empty((0, pk.num_words(n_bins)), dtype=torch.int32, device=idx.device)
+    out = hash_build.launch(idx, coeffs, n_bins)
+    launches["hash_build"] += 1
     return out
 
 
@@ -113,6 +138,25 @@ def rebucket(packed: torch.Tensor, n_bins: int, n_bins_new: int) -> torch.Tensor
                            device=packed.device)
     out = rebucket_mod.launch(packed, n_bins, n_bins_new)
     launches["rebucket"] += 1
+    return out
+
+
+def band_hash(packed: torch.Tensor, n_bands: int) -> torch.Tensor:
+    """Packed (B, W) words -> (B, nb_eff) band keys, int32 holding uint32 bits.
+
+    Band ``t`` hashes words ``[t*wpb, (t+1)*wpb)`` with ``wpb = ceil(W /
+    n_bands)``; ``n_bands`` clamps to ``[1, W]`` and the key count is ``nb_eff
+    = ceil(W / wpb)`` (``core.packed.band_shape``): size indexes off the
+    output, not the request. Two rows share a key iff that word group is
+    identical (up to 2^-32 collisions)."""
+    _check_words(packed)
+    nb_eff, wpb = pk.band_shape(packed.shape[1], n_bands)
+    if packed.device.type == "cpu":
+        return ref.band_hash_ref(packed, n_bands)
+    if packed.shape[0] == 0:
+        return torch.empty((0, nb_eff), dtype=torch.int32, device=packed.device)
+    out = band_hash_mod.launch(packed, nb_eff, wpb)
+    launches["band_hash"] += 1
     return out
 
 

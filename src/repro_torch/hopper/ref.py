@@ -5,6 +5,9 @@ operations. On a CPU tensor the wrappers in :mod:`repro_torch.hopper.ops` run
 these; on the card ``chip_smoke.py`` holds each kernel against them.
 
 * :func:`build_sketch_ref` — scatter construction (``kernels/ref.py``'s).
+* :func:`hash_build_ref` — the multiply-shift hash of ``map_indices`` in hash
+  mode, then :func:`build_sketch_ref`.
+* :func:`band_hash_ref` — the band keys of ``core.packed.band_hash``.
 * :func:`count_bins_ref` — per-bin occupancy by ``scatter_add_``.
 * :func:`rebucket_ref` — the N -> N' fold as the kernel's funnel shift, on
   int64 words.
@@ -25,11 +28,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import binsketch
 from ..core import packed as pk
 
 __all__ = [
     "MEASURES",
+    "band_hash_ref",
     "build_sketch_ref",
+    "hash_build_ref",
     "count_bins_ref",
     "log_ratio_table",
     "log_f32",
@@ -55,6 +61,22 @@ def build_sketch_ref(bins: torch.Tensor, n_bins: int) -> torch.Tensor:
     dense = torch.zeros((bins.shape[0], n_bins), dtype=torch.uint8, device=bins.device)
     dense[rows[keep], bins[keep].to(torch.int64)] = 1
     return pk.pack_bits(dense)
+
+
+def hash_build_ref(idx: torch.Tensor, coeffs: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """``idx: (B, P)`` int32 raw indices (pad -1) and ``coeffs: (2,)`` uint32
+    values ``(a, b)`` -> ``(B, ceil(N/32))`` int32 words: each index maps to
+    ``((a*idx + b) mod 2^32) mod N`` (``map_indices`` in hash mode, where
+    the dimension d plays no part), then the scatter build."""
+    cfg = binsketch.BinSketchConfig(d=1 << 31, n_bins=int(n_bins), mode="hash")
+    coeffs = coeffs.to(device=idx.device, dtype=torch.int64) & pk._U32
+    return build_sketch_ref(binsketch.map_indices(cfg, coeffs, idx), n_bins)
+
+
+def band_hash_ref(packed: torch.Tensor, n_bands: int) -> torch.Tensor:
+    """``(B, W)`` int32 words -> ``(B, nb_eff)`` int32 band keys (uint32 bits):
+    ``core.packed.band_hash``, which widens to int64 and splits the prime."""
+    return pk.band_hash(packed, n_bands)
 
 
 def count_bins_ref(bins: torch.Tensor, n_bins: int) -> torch.Tensor:

@@ -4,6 +4,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --dataset tiny --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --dataset tiny --device cpu \\
         --mutate-rate 0.3 --distill 212,106
+    PYTHONPATH=src python -m repro_torch.launch.serve --dataset tiny --device cpu \\
+        --prefilter --bands 8
 
 ``repro.launch.serve`` on the port: generate the corpus, size N by Theorem 1,
 draw the Ψ table, stream the corpus into the store in ``--ingest-batch``
@@ -20,8 +22,11 @@ segments down those width tiers and serving is mixed-width; the queries are
 also served once before distilling, so recall is reported on both sides of
 the fold. Recall is always over the surviving catalog. The lifecycle clock
 ticks once per ingest batch: birth stamps, ``--ttl`` and ``--distill-age``
-are in those ticks. All the work is in :func:`serve`; :func:`main` only reads
-the flags.
+are in those ticks. ``--prefilter`` (which implies the mutable store) arms
+the banded LSH prefilter with ``--bands`` bands: sealed segments of 256 rows
+or more grow bucket indexes, queries score only colliding buckets, and a
+``prefilter:`` line reports the last batch's candidate accounting. All the
+work is in :func:`serve`; :func:`main` only reads the flags.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import torch
 from .. import resolve_device
 from ..core import BinSketchConfig, make_mapping
 from ..data.synthetic import DATASETS, DatasetSpec, generate_corpus
-from ..engine import DistillPolicy, QueryPlanner, SketchEngine
+from ..engine import BandPolicy, DistillPolicy, QueryPlanner, SketchEngine
 from ..obs.probe import exact_topk
 
 __all__ = ["main", "recall_at", "serve"]
@@ -72,20 +77,24 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
           device="cuda", mapping: Optional[torch.Tensor] = None,
           mutate_rate: float = 0.0, seal_rows: Optional[int] = None,
           ttl: Optional[float] = None, distill: Optional[Sequence[int]] = None,
-          distill_age: Optional[float] = None) -> dict:
+          distill_age: Optional[float] = None, prefilter: bool = False,
+          bands: int = 8) -> dict:
     """Build a store over ``spec``'s corpus (seed 0), optionally mutate and
     distill it, serve ``queries`` surviving docs (seed 1) in batches of
     ``batch``, and check recall@``topk``.
 
     ``mapping`` replaces the seeded Ψ draw (the tests pass the JAX package's
-    table). Returns the numbers printed plus the engine, the corpus, the
-    surviving catalog, the query rows, their exact top-k ids and the served
-    scores and ids; with ``distill``, ``pre_distill`` holds the same readings
-    from before the fold and the sealed segments as they were."""
+    table). ``prefilter`` arms the banded prefilter with ``bands`` bands (and
+    the mutable store). Returns the numbers printed plus the engine, the
+    corpus, the surviving catalog, the query rows and their doc ids, their
+    exact top-k ids and the served scores and ids; with ``distill``,
+    ``pre_distill`` holds the same readings from before the fold and the
+    sealed segments as they were; with ``prefilter``, ``prefilter_stats`` the
+    last batch's candidate accounting."""
     dev = resolve_device(device)
     idx, lens = generate_corpus(spec, seed=0)
     n = idx.shape[0]
-    mutable = mutate_rate > 0.0 or ttl is not None or distill is not None
+    mutable = mutate_rate > 0.0 or ttl is not None or distill is not None or prefilter
     print(f"corpus: {n} docs, d={spec.d}, psi={spec.max_nnz}"
           + (f", mutate-rate={mutate_rate}" if mutable else ""))
     cfg = BinSketchConfig.from_sparsity(spec.d, int(lens.max()), rho)
@@ -96,7 +105,13 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
     engine = SketchEngine.build(
         cfg, mapping.to(dev), backend=backend,
         planner=QueryPlanner(min_batch=8, max_batch=max(batch, 8)), capacity=n,
-        mutable=mutable, seal_rows=seal_rows, ttl=ttl)
+        mutable=mutable, seal_rows=seal_rows, ttl=ttl,
+        band_policy=BandPolicy(n_bands=bands, min_rows=256) if prefilter else None)
+    if prefilter:
+        pol = engine.store.band_policy
+        print(f"prefilter: {pol.n_bands} bands, escape hatch at "
+              f"{pol.max_candidate_frac:.0%} candidates, segments under "
+              f"{pol.min_rows} rows stay unindexed")
 
     t0 = time.perf_counter()
     tick = 0  # the lifecycle clock: one tick per ingest batch
@@ -164,7 +179,8 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
     if n_queries < queries:
         print(f"(clamping queries {queries} -> {n_queries}: only {len(surv_ids)} docs "
               "survive the mutation phase)")
-    q_rows = surv_rows[rng.choice(len(surv_ids), n_queries, replace=False)]
+    q_pick = rng.choice(len(surv_ids), n_queries, replace=False)
+    q_rows = surv_rows[q_pick]
     truth_ids = surv_ids[exact_topk(surv_rows, q_rows, topk, device=dev)]
 
     if distill:
@@ -202,9 +218,17 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
     recall = recall_at(ids, truth_ids, topk)
     print(f"recall@{topk} vs exact Jaccard" + (" over survivors" if mutable else "")
           + f": {recall:.3f}")
+    if prefilter and engine.last_prefilter_stats is not None:
+        st = engine.last_prefilter_stats
+        frac = st["cand_rows"] / max(st["seg_rows"], 1)
+        print(f"prefilter: {st['banded_segments']} banded / {st['exhaustive_segments']} "
+              f"escape-hatch / {st['unindexed_segments']} unindexed segment scan(s) on the "
+              f"last batch; candidate fraction {frac:.4f}")
+        out["prefilter_stats"] = dict(st)
     out.update(recall=recall, serve_s=t_serve, queries_per_s=n_queries / t_serve,
                engine=engine, corpus=idx, surv_ids=surv_ids, surv_rows=surv_rows,
-               queries=q_rows, truth_ids=truth_ids, scores=sc, ids=ids, serve_now=serve_now)
+               queries=q_rows, query_ids=surv_ids[q_pick], truth_ids=truth_ids, scores=sc,
+               ids=ids, serve_now=serve_now)
     return out
 
 
@@ -234,6 +258,12 @@ def main(argv=None):
     ap.add_argument("--distill-age", type=float, default=None,
                     help="only distill segments whose youngest live doc is at least "
                          "this many ticks old (default: every sealed segment)")
+    ap.add_argument("--prefilter", action="store_true",
+                    help="mutable store: arm the banded LSH prefilter; sealed segments "
+                         "grow bucket indexes and queries score only colliding buckets")
+    ap.add_argument("--bands", type=int, default=8,
+                    help="bands a sketch for --prefilter (more bands: higher recall, "
+                         "larger candidate unions)")
     args = ap.parse_args(argv)
     widths = (tuple(int(w) for w in args.distill.split(",") if w)
               if args.distill else None)
@@ -241,7 +271,7 @@ def main(argv=None):
                 rho=args.rho, batch=args.batch, ingest_batch=args.ingest_batch,
                 backend=args.backend, device=args.device, mutate_rate=args.mutate_rate,
                 seal_rows=args.seal_rows, ttl=args.ttl, distill=widths,
-                distill_age=args.distill_age)
+                distill_age=args.distill_age, prefilter=args.prefilter, bands=args.bands)
     return out["recall"]
 
 

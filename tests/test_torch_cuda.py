@@ -95,3 +95,39 @@ def test_rebucket_kernel(dev, b, n_bins, n_new):
     assert torch.equal(got, ref.rebucket_ref(words, n_bins, n_new))
     assert torch.equal(got, pk.fold_packed(words, n_bins, n_new))
     assert ops.rebucket(words, n_bins, n_bins) is words and ops.launches["rebucket"] == before + 1
+
+
+@pytest.mark.parametrize("b,w,n_bands", [(255_000, 184, 8), (256, 184, 8), (250_000, 16, 8),
+                                         (9, 13, 5), (3, 1, 8), (1, 1, 1), (7, 32, 32),
+                                         (2, 64, 3)])
+def test_band_hash_kernel(dev, b, w, n_bands):
+    """The prefilter's shapes (a compacted NYTimes segment, a query chunk, a
+    quarter of the 1M-doc clustered corpus), W not a multiple of the bands,
+    more bands than words, B = W = 1; words with the top bit set."""
+    gen = torch.Generator(device=dev).manual_seed(w)
+    words = torch.randint(-(1 << 31), 1 << 31, (b, w), generator=gen, device=dev,
+                          dtype=torch.int64).to(torch.int32)
+    words[0] = -1  # every bit set
+    before = ops.launches["band_hash"]
+    got = ops.band_hash(words, n_bands)
+    assert ops.launches["band_hash"] == before + 1
+    assert torch.equal(got, ref.band_hash_ref(words, n_bands))
+    assert torch.equal(got.cpu(), pk.band_hash(words.cpu(), n_bands))
+
+
+@pytest.mark.parametrize("b,p,n_bins", [(16384, 870, 5859), (3, 9, 100), (7, 33, 517),
+                                        (5, 10, 20), (1, 1, 1), (64, 256, 4096)])
+def test_hash_build_kernel(dev, b, p, n_bins):
+    """The hash-mode ingest shape (NYTimes at rho 0.05), N % 32 != 0 and
+    N < 32, indices up to 2^31 - 1, and a row of pads only."""
+    gen = torch.Generator(device=dev).manual_seed(p)
+    idx = torch.randint(0, (1 << 31) - 1, (b, p), generator=gen, device=dev, dtype=torch.int32)
+    lens = torch.randint(0, p + 1, (b, 1), generator=gen, device=dev)
+    idx = torch.where(torch.arange(p, device=dev)[None, :] < lens, idx, -1).to(torch.int32)
+    idx[0] = -1
+    coeffs = torch.tensor([0x9E3779B1, 0xDEADBEEF], dtype=torch.int64)
+    before = ops.launches["hash_build"]
+    got = ops.hash_build_sketch(idx, coeffs.to(dev), n_bins)
+    assert ops.launches["hash_build"] == before + 1
+    assert torch.equal(got, ref.hash_build_ref(idx, coeffs, n_bins))
+    assert not got[0].any()

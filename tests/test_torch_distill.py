@@ -23,7 +23,7 @@ from repro.engine import get_backend as j_get_backend
 from repro.engine.testing import assert_topk_equivalent
 from repro_torch.convert import packed_to_reference, segmented_store_from_reference
 from repro_torch.data.synthetic import DATASETS
-from repro_torch.engine import DistillPolicy, SketchEngine, get_backend
+from repro_torch.engine import BandPolicy, DistillPolicy, SketchEngine, get_backend
 
 from test_torch_segments import Twin, _ingest, assert_same_state, tiny  # noqa: F401
 
@@ -276,9 +276,14 @@ def test_segmented_store_from_reference(tiny, mixed):
     got = SketchEngine(back, get_backend("reference")).query(q, 5)
     want = tw.t.query(q, 5)
     assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
-    aux = dict(aux, band_policy={"n_bands": 8})
-    with pytest.raises(ValueError, match="band policy"):
-        segmented_store_from_reference(tree, aux, CPU)
+    # a band policy crosses too, each segment's index rebuilt from its slab
+    # (tests/test_torch_banding.py holds the indexes to the reference's)
+    aux = dict(aux, band_policy={"n_bands": 8, "min_rows": 8})
+    banded = segmented_store_from_reference(tree, aux, CPU)
+    assert banded.band_policy == BandPolicy(n_bands=8, min_rows=8)
+    assert all((s.band_index is not None) == (s.n_rows >= 8) for s in banded.sealed)
+    got = SketchEngine(banded, get_backend("reference")).query(q, 5, prefilter=False)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
 # ------------------------------------------------------------------ driver

@@ -219,5 +219,7 @@ def test_cpu_calls_do_not_count_as_launches():
     ops.sketch_score(a, a, 64)
     ops.sketch_topk(a, a, 64, k=2)
     ops.build_sketch(torch.zeros((2, 3), dtype=torch.int32), 64)
+    ops.band_hash(a, 2)
+    ops.hash_build_sketch(torch.zeros((2, 3), dtype=torch.int32), torch.tensor([3, 5]), 64)
     assert ops.launches == {"build_sketch": 0, "sketch_score": 0, "sketch_topk": 0,
-                            "count_bins": 0, "rebucket": 0}
+                            "count_bins": 0, "rebucket": 0, "band_hash": 0, "hash_build": 0}

@@ -45,6 +45,9 @@ def test_port_imports_without_cuda_and_default_raises(monkeypatch):
     for name in names:
         importlib.import_module(name)
     assert "repro_torch.hopper.ops" in names and "repro_torch.launch.serve" in names
+    for new in ("repro_torch.engine.banding", "repro_torch.hopper.band_hash",
+                "repro_torch.hopper.hash_build"):
+        assert new in names
 
     import repro_torch
     from repro_torch import convert
@@ -82,3 +85,7 @@ def test_kernel_wrappers_never_fall_back():
         ops.count_bins(words, 64)
     with pytest.raises(ValueError, match="CUDA tensor"):
         ops.rebucket(words, 64, 32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.band_hash(words, 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.hash_build_sketch(words, torch.tensor([3, 5], device="meta"), 64)
