@@ -7,7 +7,11 @@
 Phases, each fatal on failure (nothing is caught while the run goes on):
 
 1. The card's name and power limit; every Hopper kernel built with nvcc, one
-   process per source, timed.
+   process per source, timed; then the rate of the binary tensor-core
+   instruction the score and top-k kernels count with (``wgmma
+   m64n128k256.s32.b1.b1.and.popc``), timed alone in a loop on operands in
+   shared memory, printed beside the card: the operations bound of those
+   two kernels.
 2. The main path, through the entry points a user calls: ``serve`` over the
    NYTimes-shaped corpus (d=102660, mean length 230, psi=870) at the document
    count of the UCI NYTimes bag-of-words corpus, 300,000, with rho=0.05,
@@ -64,8 +68,14 @@ Phases, each fatal on failure (nothing is caught while the run goes on):
    main path's shapes and on ragged ones: build bit-exact, score counts
    exact and measures within rtol 1e-5 / atol 1e-6, top-k equal up to
    provable score ties, band keys bit-exact (W not a multiple of the bands,
-   more bands than words, B = W = 1). Then each timed with CUDA events
-   (median), beside its plain version and its bound on this card.
+   more bands than words, B = W = 1). Score and top-k also at the shapes the
+   tensor-core tile makes risky: W = 1, 5, 9, 17, 46 (not multiples of its
+   8-word step), Q = 1, 63, 65, 129 (around its 64-row warpgroups), C < 256
+   and C = 256 t +- 1 (around its 128-row tiles), a ``b_valid`` mask that
+   drops whole tiles, and k = 256. Then each timed with CUDA events
+   (median), beside its plain version and its bound on this card; the
+   counts form of the score kernel also beside ``torch._int_mm`` on the same
+   bits expanded to int8 (the library yardstick of both count kernels).
 
 The line before the last lists the seven kernels as JSON, the one before it
 the card; before those, ``{"serve": ...}``, ``{"mutable": ...}``,
@@ -92,10 +102,12 @@ SRC = ROOT / "src"
 
 # the card's published peaks (H100 SXM data sheet, at its 700 W limit):
 # device memory rate, and 32-bit operations outside the tensor cores
-# (67 TFLOP/s float32; the integer AND/POPC/ADD work runs on the same SM
-# pipes, so this is a floor on its time, not a reachable rate)
+# (67 TFLOP/s float32), the floor of the SIMT kernels' work; the binary
+# tensor-core rate has no published figure and is measured in phase 1
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+# iterations of the b1 wgmma loop that measures its rate (a few ms)
+B1_LOOP_ITERS = 20_000
 
 RTOL, ATOL = 1e-5, 1e-6
 # the kernels of the append-only main path (phase 2); phase 2b adds
@@ -127,9 +139,9 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = PEAK_OPS_PER_S):
     """(least time in ms, what sets it) for the given bytes and operations."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_OPS_PER_S
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -157,15 +169,58 @@ def check_topk(torch, got, want, truth, what: str, rtol: float = RTOL,
     return err
 
 
-def exact_err(torch, got, want, what: str) -> float:
-    """Largest absolute difference of two integer tensors that must be equal:
-    0.0 when they are; the run fails otherwise."""
+def exact_err(torch, got, want, what: str) -> int:
+    """Count of the elements (words, counters, keys) in which two integer
+    tensors that must be equal differ, computed from them; the run fails
+    unless it is 0."""
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"{what}: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
-    err = float((got.long() - want.long()).abs().max()) if got.numel() else 0.0
+    err = int((got != want).sum())
     if err:
-        fail(f"{what}: differs from its plain version by up to {err}")
+        fail(f"{what}: {err} elements differ from its plain version")
     return err
+
+
+def b1_rate(torch, dev) -> float:
+    """Bit-AND-popcount multiply-adds per second of the binary wgmma
+    (m64n128k256, 64 x 128 x 256 a warpgroup and instruction) alone: four
+    warpgroups on every SM loop over it on operands resident in shared
+    memory, no device-memory traffic; CUDA-event median of 5."""
+    from repro_torch.hopper import popcount_sim
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = torch.zeros(sms * 512, dtype=torch.int32, device=dev)
+    macs = popcount_sim.mma_b1_loop(out, B1_LOOP_ITERS)
+    ms = cuda_ms(torch, lambda: popcount_sim.mma_b1_loop(out, B1_LOOP_ITERS), 5)
+    return macs / (ms * 1e-3)
+
+
+def score_topk_ragged(torch, dev, gen, words) -> None:
+    """Score and top-k against their plain versions where the tensor-core
+    tile is ragged: W not a multiple of 8 (1, 5, 9, 17, 46), Q around 64-row
+    warpgroups, C below two 128-row tiles and one past or short of a multiple
+    of one, masks that drop whole tiles, k up to 256."""
+    from repro_torch.hopper import ops, ref
+
+    cases = [(1, 100, 1), (63, 255, 5), (65, 257, 9), (129, 511, 17), (1, 513, 46),
+             (63, 769, 9), (129, 1025, 46), (65, 1023, 17), (129, 300, 5)]
+    for q_, c_, w_ in cases:
+        n_ = 32 * w_ - 5 if w_ > 1 else 20
+        a, b = words(q_, n_, 0.1), words(c_, n_, 0.1)
+        for m in ref.MEASURES:
+            got, want = ops.sketch_score(a, b, n_, m), ref.sketch_score_ref(a, b, n_, m)
+            if not (torch.equal(got, want) if m == "counts"
+                    else torch.allclose(got, want, rtol=RTOL, atol=ATOL)):
+                fail(f"sketch_score {m} differs at Q={q_} C={c_} W={w_}")
+            if m not in ("counts", "jaccard"):
+                continue
+            valid = (torch.rand(c_, generator=gen, device=dev) > 0.2).to(torch.int32)
+            valid[256:512] = 0  # a whole tile, where there is one
+            for k in (1, 10, 200, 256):
+                got_t = ops.sketch_topk(a, b, n_, m, k=k, b_valid=valid)
+                want_t = ref.sketch_topk_ref(a, b, n_, m, k=k, b_valid=valid)
+                check_topk(torch, got_t, want_t, want,
+                           f"sketch_topk {m} k={k} at Q={q_} C={c_} W={w_}")
 
 
 def serve_warm(torch, engine, queries, now, prefilter=None) -> float:
@@ -321,21 +376,22 @@ def mutable_phase(torch, dev, spec, n_bins: int):
     # ------------------------------------- count_bins / rebucket vs plain
     corpus_rows = torch.from_numpy(out["corpus"][:16384]).to(dev)
     bins = binsketch.map_indices(cfg, mapping, counting.dedup_padded(corpus_rows))
-    errs = {"count_bins": exact_err(torch, ops.count_bins(bins, n_bins),
-                                    ref.count_bins_ref(bins, n_bins),
-                                    "count_bins at the ingest shape"),
-            "rebucket": 0.0}
+    # differing elements of every comparison, by kernel
+    errs = {"count_bins": [exact_err(torch, ops.count_bins(bins, n_bins),
+                                     ref.count_bins_ref(bins, n_bins),
+                                     "count_bins at the ingest shape")],
+            "rebucket": []}
     gen = torch.Generator(device=dev).manual_seed(2)
     for b_, p_, n_ in [(1, 4, 32), (7, 33, 517), (300, 1000, 70_000), (64, 870, n_bins)]:
         lens = torch.randint(0, p_ + 1, (b_, 1), generator=gen, device=dev)
         rb = torch.randint(0, n_ + 40, (b_, p_), generator=gen, device=dev, dtype=torch.int32)
         rb = torch.where(torch.arange(p_, device=dev)[None, :] < lens, rb, -1).to(torch.int32)
         rb[0] = -1  # a row of pads only
-        errs["count_bins"] = max(errs["count_bins"], exact_err(
+        errs["count_bins"].append(exact_err(
             torch, ops.count_bins(rb, n_), ref.count_bins_ref(rb, n_),
             f"count_bins at {(b_, p_, n_)}"))
     for n_new in (n1, n2):
-        errs["rebucket"] = max(errs["rebucket"], exact_err(
+        errs["rebucket"].append(exact_err(
             torch, ops.rebucket(qs, n_bins, n_new), ref.rebucket_ref(qs, n_bins, n_new),
             f"rebucket at (256, {cfg.n_words}) -> {n_new}"))
     for b_, n_, n_new in [(13, 512, 100), (9, 101, 33), (5, 517, 1), (5, 517, 32),
@@ -343,11 +399,10 @@ def mutable_phase(torch, dev, spec, n_bins: int):
         bits = torch.rand((b_, pk.num_words(n_) * 32), generator=gen, device=dev) < 0.3
         words = pk.pack_bits(bits.to(torch.uint8))  # bits >= N set too: they must not leak
         got = ops.rebucket(words, n_, n_new)
-        errs["rebucket"] = max(errs["rebucket"],
-                               exact_err(torch, got, ref.rebucket_ref(words, n_, n_new),
-                                         f"rebucket at {(b_, n_, n_new)}"),
-                               exact_err(torch, got, pk.fold_packed(words, n_, n_new),
-                                         f"rebucket vs fold_packed at {(b_, n_, n_new)}"))
+        errs["rebucket"] += [exact_err(torch, got, ref.rebucket_ref(words, n_, n_new),
+                                       f"rebucket at {(b_, n_, n_new)}"),
+                             exact_err(torch, got, pk.fold_packed(words, n_, n_new),
+                                       f"rebucket vs fold_packed at {(b_, n_, n_new)}")]
     torch.cuda.synchronize()
     print("count_bins and rebucket vs plain versions: all agree (exact)")
 
@@ -374,7 +429,7 @@ def mutable_phase(torch, dev, spec, n_bins: int):
     ]:
         b_ms, b_by = bound_ms(n_bytes, n_ops)
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
+                     "launches": launches[name], "max_abs_err": max(errs[name]), "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": lib})
     print(f"shapes: count_bins {tuple(bins.shape)} -> (B, N={n_bins}); rebucket "
@@ -714,13 +769,13 @@ def hash_mode_phase(torch, dev, spec, corpus, queries_np, truth_ids, n_bins: int
     print(f"hash-mode ingest launches: {launches}")
     if launches["hash_build"] < 1:
         fail("kernel hash_build never launched on the hash-mode path")
-    err = 0.0
+    errs = []  # differing words of every comparison
     for s in range(0, n, 16384):  # every batch against map-then-build
         rows = torch.from_numpy(corpus[s : s + 16384]).to(dev)
         want = ops.build_sketch(map_indices(cfg, coeffs, rows), n_bins)
-        err = max(err, exact_err(torch, engine.store.sketches[s : s + len(rows)], want,
-                                 f"hash_build_sketch vs map_indices + build_sketch at batch "
-                                 f"{s // 16384}"))
+        errs.append(exact_err(torch, engine.store.sketches[s : s + len(rows)], want,
+                              f"hash_build_sketch vs map_indices + build_sketch at batch "
+                              f"{s // 16384}"))
     queries = torch.from_numpy(queries_np).to(dev)
     t0 = time.perf_counter()
     ids = torch.cat([engine.query(queries[s : s + 256], 10)[1]
@@ -737,9 +792,9 @@ def hash_mode_phase(torch, dev, spec, corpus, queries_np, truth_ids, n_bins: int
 
     rows = torch.from_numpy(corpus[:16384]).to(dev)
     cpu_coeffs = coeffs.cpu()
-    err = max(err, exact_err(torch, ops.hash_build_sketch(rows, coeffs, n_bins),
-                             ref.hash_build_ref(rows, coeffs, n_bins),
-                             "hash_build at the ingest shape"))
+    errs.append(exact_err(torch, ops.hash_build_sketch(rows, coeffs, n_bins),
+                          ref.hash_build_ref(rows, coeffs, n_bins),
+                          "hash_build at the ingest shape"))
     gen = torch.Generator(device=dev).manual_seed(4)
     for b_, p_, n_ in [(1, 4, 32), (7, 33, 517), (5, 10, 20), (3, 9, 1), (64, 256, 4096),
                        (300, 1000, 35000)]:
@@ -749,8 +804,8 @@ def hash_mode_phase(torch, dev, spec, corpus, queries_np, truth_ids, n_bins: int
         rb = torch.where(torch.arange(p_, device=dev)[None, :] < lens, rb, -1).to(torch.int32)
         rb[0] = -1  # a row of pads only
         got = ops.hash_build_sketch(rb, coeffs, n_)
-        err = max(err, exact_err(torch, got, ref.hash_build_ref(rb, cpu_coeffs, n_),
-                                 f"hash_build at {(b_, p_, n_)}"))
+        errs.append(exact_err(torch, got, ref.hash_build_ref(rb, cpu_coeffs, n_),
+                              f"hash_build at {(b_, p_, n_)}"))
         if got[0].any():
             fail(f"hash_build set a bit from a row of pads at {(b_, p_, n_)}")
     torch.cuda.synchronize()
@@ -762,7 +817,7 @@ def hash_mode_phase(torch, dev, spec, corpus, queries_np, truth_ids, n_bins: int
     row = {"name": "hash_build", "route": "cuda",
            "source": "src/repro_torch/hopper/csrc/hash_build.cu",
            "replaces": "src/repro/kernels/hash_build.py:48",
-           "launches": launches["hash_build"], "max_abs_err": err,
+           "launches": launches["hash_build"], "max_abs_err": max(errs),
            "ms": cuda_ms(torch, lambda: ops.hash_build_sketch(rows, coeffs, n_bins), 20),
            "plain_ms": cuda_ms(torch, lambda: ref.hash_build_ref(rows, coeffs, n_bins), 3),
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
@@ -810,6 +865,9 @@ def main(argv=None) -> int:
     libs = build.build_all()
     print(f"build: {len(libs)} kernels in {time.perf_counter() - t0:.1f}s "
           f"(nvcc {' '.join(build.NVCC_FLAGS[:2])}) -> {build.BUILD_DIR}")
+    rate = b1_rate(torch, dev)
+    print(f"b1 tensor-core rate: {rate:.6e} bit-AND-popcount multiply-adds/s (wgmma "
+          f"m64n128k256.s32.b1.b1.and.popc in a loop, operands in shared memory) on {card}")
 
     # ------------------------------------------------------------ main path
     spec = dataclasses.replace(DATASETS["nytimes"], n_points=args.n_points)
@@ -898,6 +956,7 @@ def main(argv=None) -> int:
         build_err = max(build_err, exact_err(torch, ops.build_sketch(rb, n_),
                                              ref.build_sketch_ref(rb, n_),
                                              f"build_sketch at {(b_, p_, n_)}"))
+    score_topk_ragged(torch, dev, gen, words)
     for q_, c_, n_ in [(9, 130, 517), (130, 300, 1000), (1, 1, 32), (65, 4099, 2048)]:
         a, b = words(q_, n_, 0.1), words(c_, n_, 0.1)
         for m in ref.MEASURES:
@@ -912,21 +971,41 @@ def main(argv=None) -> int:
                 want_ = ref.sketch_topk_ref(a, b, n_, m, k=k, b_valid=valid)
                 check_topk(torch, got, want_, want, f"sketch_topk {m} k={k} at {(q_, c_, n_)}")
     torch.cuda.synchronize()
-    print("kernels vs plain versions: all agree (build bit-exact, score and top-k "
-          f"within rtol {RTOL} / atol {ATOL}, top-k ids up to score ties)")
+    print("kernels vs plain versions: all agree (build bit-exact, score counts exact and "
+          f"measures within rtol {RTOL} / atol {ATOL}, top-k ids up to score ties; W = 1, 5, "
+          "9, 17, 46, Q = 1, 63, 65, 129, C < 256 and 256 t +- 1, whole tiles masked, k to 256)")
+
+    # the library yardstick of the counts: torch._int_mm on the same bits as
+    # int8 0/1, (Q, 32W) x (32W, C); the expansion is not timed
+    a8 = pk.unpack_bits(qs, 32 * w).to(torch.int8)
+    b8 = torch.cat([pk.unpack_bits(corpus[s : s + 16384], 32 * w).to(torch.int8)
+                    for s in range(0, corpus.shape[0], 16384)])
+    counts = ops.sketch_score(qs, corpus, n, "counts", a_fills=qf, b_fills=fills)
+    lib_counts = torch._int_mm(a8, b8.t())
+    if not torch.equal(lib_counts.float(), counts):
+        fail("torch._int_mm on the expanded bits disagrees with the kernel's counts")
+    lib_ms = cuda_ms(torch, lambda: torch._int_mm(a8, b8.t()), 5)
+    counts_ms = cuda_ms(torch, lambda: ops.sketch_score(qs, corpus, n, "counts", a_fills=qf,
+                                                        b_fills=fills), 5)
+    del a8, b8, counts, lib_counts
+    torch.cuda.empty_cache()
+    print(f"counts (Q={qs.shape[0]}, C={corpus.shape[0]}, W={w}): sketch_score counts form "
+          f"{counts_ms:.4f} ms, torch._int_mm on int8 0/1 bits {lib_ms:.4f} ms (equal counts; "
+          "the library_ms of sketch_score and sketch_topk, which covers the counts only)")
 
     # ---------------------------------------------------------------- times
     bsz, p = bins.shape
     qn, cn = qs.shape[0], corpus.shape[0]
-    pair_ops = 3.0 * qn * cn * w  # AND + POPC + ADD per word pair
+    pair_macs = 32.0 * qn * cn * w  # bit-AND-popcount multiply-adds on the tensor cores
     rows = []
 
-    def row(name, source, replaces, ms, plain_ms, n_bytes, n_ops, err):
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
+    def row(name, source, replaces, ms, plain_ms, n_bytes, n_ops, err, ops_per_s=PEAK_OPS_PER_S,
+            library_ms=None, **extra):
+        b_ms, b_by = bound_ms(n_bytes, n_ops, ops_per_s)
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[name], "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": None})
+                     "library_ms": library_ms, **extra})
 
     row("build_sketch", "src/repro_torch/hopper/csrc/sketch_build.cu",
         "src/repro/kernels/sketch_build.py:51",
@@ -939,20 +1018,22 @@ def main(argv=None) -> int:
                                                 b_fills=fills), 5),
         cuda_ms(torch, lambda: ref.sketch_score_ref(qs, corpus, n, "jaccard", a_fills=qf,
                                                     b_fills=fills), 2),
-        4.0 * (qn + cn) * (w + 1) + 4.0 * qn * cn, pair_ops, score_err)
+        4.0 * (qn + cn) * (w + 1) + 4.0 * qn * cn, pair_macs, score_err, rate, lib_ms,
+        counts_ms=counts_ms)
     row("sketch_topk", "src/repro_torch/hopper/csrc/topk_stream.cu",
         "src/repro/kernels/topk_stream.py:146",
         cuda_ms(torch, lambda: ops.sketch_topk(qs, corpus, n, "jaccard", k=10, a_fills=qf,
                                                b_fills=fills), 5),
         cuda_ms(torch, lambda: ref.sketch_topk_ref(qs, corpus, n, "jaccard", k=10,
                                                    a_fills=qf, b_fills=fills), 2),
-        4.0 * (qn + cn) * (w + 1) + 8.0 * qn * 10, pair_ops, topk_err)
+        4.0 * (qn + cn) * (w + 1) + 8.0 * qn * 10, pair_macs, topk_err, rate, lib_ms)
     rows += mut_rows + [band_row, hash_row]
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.2f} ms, bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']}, {r['launches']} launches)")
     print(f"shapes: build {tuple(bins.shape)} -> W={w} (N={n}); score/topk "
-          f"Q={qn} x C={cn} x W={w}, k=10")
+          f"Q={qn} x C={cn} x W={w}, k=10; score and top-k bounds from the measured b1 rate "
+          f"{rate:.6e}/s, their library_ms torch._int_mm (counts only)")
     print(json.dumps({"serve": {k: out[k] for k in ("n_docs", "n_bins", "n_words", "build_s",
                                                   "docs_per_s", "serve_s", "queries_per_s",
                                                   "warm_queries_per_s", "recall")}}))

@@ -38,6 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
 _FLOAT = ctypes.c_float
+_LONG = ctypes.c_longlong
 # argtypes of every C entry point, by library
 _SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "sketch_build": {
@@ -45,16 +46,21 @@ _SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "sketch_build": (_VOIDP, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP),
     },
     "popcount_sim": {
-        # a, b, na, nb, Q, C, W, measure, card, inv, n_bins, out, stream
+        # a, b, na, nb, Q, C, W, measure, card, inv, n_bins, out, warpgroups,
+        # stages, stage_steps, splits, tiles_per_split, smem_bytes, vec16, stream
         "sketch_score": (_VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT, _INT, _INT, _INT,
-                         _VOIDP, _FLOAT, _INT, _VOIDP, _VOIDP),
+                         _VOIDP, _FLOAT, _INT, _VOIDP, _INT, _INT, _INT, _INT, _INT, _LONG,
+                         _INT, _VOIDP),
+        # blocks, iters, out, stream
+        "mma_b1_loop": (_INT, _INT, _VOIDP, _VOIDP),
     },
     "topk_stream": {
         # a, b, na, nb, valid, Q, C, W, measure, card, inv, n_bins, k_pad,
-        # splits, tiles_per_split, partial, stream
+        # warpgroups, stages, stage_steps, splits, tiles_per_split, smem_bytes,
+        # vec16, partial, stream
         "sketch_topk_partial": (_VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT, _INT,
-                                _INT, _INT, _VOIDP, _FLOAT, _INT, _INT, _INT, _INT,
-                                _VOIDP, _VOIDP),
+                                _INT, _INT, _VOIDP, _FLOAT, _INT, _INT, _INT, _INT, _INT,
+                                _INT, _INT, _LONG, _INT, _VOIDP, _VOIDP),
         # partial, Q, splits, k_pad, out_scores, out_ids, stream
         "sketch_topk_merge": (_VOIDP, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP),
     },

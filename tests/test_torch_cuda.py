@@ -65,6 +65,36 @@ def test_score_and_topk_kernels(dev, q, c, n_bins, measure):
                                        rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("q,c,w", [(1, 100, 1), (63, 255, 5), (65, 257, 9), (129, 511, 17),
+                                   (1, 513, 46), (63, 769, 9), (129, 1025, 46), (65, 1023, 17)])
+def test_score_and_topk_ragged_tiles(dev, q, c, w):
+    """Where the tensor-core tile is ragged: W not a multiple of its 8-word
+    k256 step, Q around its 64-row warpgroups, C below two 128-row tiles or
+    one past or short of a multiple of one, a mask that drops whole tiles,
+    and k up to 256 (64-query blocks)."""
+    gen = torch.Generator(device=dev).manual_seed(q * 1000 + w)
+    n_bins = 32 * w - 5 if w > 1 else 20
+    a, b = _words(gen, q, n_bins, 0.1, dev), _words(gen, c, n_bins, 0.1, dev)
+    counts = ops.sketch_score(a, b, n_bins, "counts")
+    assert torch.equal(counts, ref.sketch_score_ref(a, b, n_bins, "counts"))
+    want = ref.sketch_score_ref(a, b, n_bins, "jaccard")
+    torch.testing.assert_close(ops.sketch_score(a, b, n_bins, "jaccard"), want,
+                               rtol=1e-5, atol=1e-6)
+    valid = (torch.rand(c, generator=gen, device=dev) > 0.2).to(torch.int32)
+    valid[256:512] = 0
+    for k in (1, 10, 256):
+        sc, ix = ops.sketch_topk(a, b, n_bins, "jaccard", k=k, b_valid=valid)
+        ws, wi = ref.sketch_topk_ref(a, b, n_bins, "jaccard", k=k, b_valid=valid)
+        torch.testing.assert_close(sc, ws, rtol=1e-5, atol=1e-6)
+        assert torch.equal(ix[~torch.isfinite(ws)], wi[~torch.isfinite(ws)])
+        differ = (ix != wi) & torch.isfinite(ws)
+        if differ.any():  # only where the two ids' scores tie
+            r = differ.nonzero(as_tuple=True)[0]
+            torch.testing.assert_close(want[r, ix[differ].long()], want[r, wi[differ].long()],
+                                       rtol=1e-5, atol=1e-6)
+        assert not torch.isin(ix, torch.arange(256, 512, device=dev, dtype=ix.dtype)).any()
+
+
 @pytest.mark.parametrize("b,p,n_bins", [(16384, 870, 5859), (7, 33, 517), (300, 1000, 70_000),
                                         (1, 4, 32)])
 def test_count_bins_kernel(dev, b, p, n_bins):

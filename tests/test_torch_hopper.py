@@ -223,3 +223,92 @@ def test_cpu_calls_do_not_count_as_launches():
     ops.hash_build_sketch(torch.zeros((2, 3), dtype=torch.int32), torch.tensor([3, 5]), 64)
     assert ops.launches == {"build_sketch": 0, "sketch_score": 0, "sketch_topk": 0,
                             "count_bins": 0, "rebucket": 0, "band_hash": 0, "hash_build": 0}
+
+
+# ---------------------------------------------------- tensor-core launch plan
+@pytest.mark.parametrize("w", [1, 5, 16, 46, 92, 184, 1024])
+@pytest.mark.parametrize("k_pad", [0] + [1 << i for i in range(9)])
+def test_launch_plan_fits_shared_memory(k_pad, w):
+    """Every power-of-two k_pad <= 256 (0: the score kernel) at every W fits
+    the 232,448 bytes a block may use, with a ring of at least three stages;
+    as many 64-row warpgroups as the queries need (up to 4 for the score
+    kernel, 2 for top-k) unless twice the warpgroups would not fit."""
+    from repro_torch.hopper import popcount_sim as ps
+
+    for q in (1, 64, 65, 129, 256, 1000):
+        plan = ps.launch_plan(q, 300_000, w, k_pad, 132)
+        assert plan.smem_bytes <= ps.SMEM_LIMIT == 232_448
+        assert plan.smem_bytes == ps.smem_bytes(plan.warpgroups, plan.stages, k_pad,
+                                                plan.stage_steps)
+        assert 1 <= plan.stage_steps <= min(4, -(-w // 8))
+        assert ps.MIN_STAGES <= plan.stages <= ps.MAX_STAGES
+        need = min(2 if k_pad else 4, ps.next_pow2(-(-q // 64)))
+        assert plan.warpgroups <= need
+        if plan.warpgroups < need:
+            assert ps.smem_bytes(2 * plan.warpgroups, ps.MIN_STAGES, k_pad) > ps.SMEM_LIMIT
+    assert ps.launch_plan(256, 300_000, w, k_pad, 132).warpgroups == (
+        4 if k_pad == 0 else 2 if k_pad <= 128 else 1)
+
+
+@pytest.mark.parametrize("q,c", [(1, 1), (63, 255), (65, 257), (129, 511), (256, 300_000),
+                                 (1000, 7), (300, 65_537)])
+@pytest.mark.parametrize("k_pad", [0, 16, 256])
+def test_launch_plan_covers_every_row_and_tile_once(q, c, k_pad):
+    """The blocks' (query tile, corpus range) pairs cover every query row and
+    every 128-row corpus tile exactly once, with no empty range, and the
+    grid is about one block an SM."""
+    from repro_torch.hopper import popcount_sim as ps
+
+    plan = ps.launch_plan(q, c, 184, k_pad, 132)
+    n_tiles = -(-c // 128)
+    rows_a = 64 * plan.warpgroups
+    assert plan.n_tiles == n_tiles and plan.q_tiles == -(-q // rows_a)
+    seen = np.zeros((plan.q_tiles, n_tiles), np.int64)
+    for y in range(plan.q_tiles):  # block (x, y), as the kernels take their work
+        for x in range(plan.splits):
+            t0 = x * plan.tiles_per_split
+            t1 = min(t0 + plan.tiles_per_split, n_tiles)
+            assert t0 < t1
+            seen[y, t0:t1] += 1
+    assert (seen == 1).all()  # every (query tile, corpus tile) once; every row in one tile
+    assert plan.q_tiles * plan.splits < 132 + plan.q_tiles
+
+
+@pytest.mark.parametrize("q,c,w,k_pad", [(0, 5, 8, 0), (5, 0, 8, 16), (5, 5, 0, 16),
+                                         (5, 5, 8, 3), (5, 5, 8, 512), (5, 5, 8, -2),
+                                         (65535 * 256 + 1, 5, 8, 16)])
+def test_launch_plan_refuses_what_does_not_fit(q, c, w, k_pad):
+    from repro_torch.hopper import popcount_sim as ps
+
+    with pytest.raises(ValueError):
+        ps.launch_plan(q, c, w, k_pad, 132)
+
+
+def k256_counts(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The score and top-k kernels' blocking of the word axis in plain
+    PyTorch: counts summed over k256 steps of 8 words, each step's words >=
+    W read as zero (the zero-fill of the copies into shared memory)."""
+    q, w = a.shape
+    steps = -(-w // 8)
+    a8 = torch.nn.functional.pad(a, (0, steps * 8 - w)).reshape(q, steps, 8)
+    b8 = torch.nn.functional.pad(b, (0, steps * 8 - w)).reshape(b.shape[0], steps, 8)
+    out = torch.zeros((q, b.shape[0]), dtype=torch.int32)
+    for s in range(steps):
+        out += tpk.and_popcount_pairwise(a8[:, s], b8[:, s])
+    return out
+
+
+@pytest.mark.parametrize("w", [1, 5, 8, 9, 17, 46, 184])
+def test_k256_blocking_matches_pairwise_counts(w):
+    """The kernels' k256 blocking, emulated, gives the JAX package's
+    ``and_popcount_pairwise`` bit for bit, on words with every bit pattern
+    (the top bit and all-ones rows included)."""
+    from repro.core import packed as jpk
+
+    a = RNG.integers(0, 1 << 32, (7, w), dtype=np.uint64).astype(np.uint32)
+    b = RNG.integers(0, 1 << 32, (13, w), dtype=np.uint64).astype(np.uint32)
+    a[0] = 0xFFFFFFFF
+    b[1] = 0xFFFFFFFF
+    got = k256_counts(t(a), t(b))
+    want = np.asarray(jpk.and_popcount_pairwise(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_array_equal(got.numpy(), want)
