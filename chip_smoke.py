@@ -63,21 +63,28 @@ Phases, each fatal on failure (nothing is caught while the run goes on):
    ``map_indices`` in hash mode followed by ``ops.build_sketch``, recall@10
    against exact Jaccard at least 0.3. ``hash_build`` is then held against
    its plain version at the path's shape and ragged ones (N % 32 != 0,
-   N < 32, rows of pads only) and timed beside its bound.
+   N < 32, rows of pads only; :func:`bitmap_ragged`: P % 4 in {0, 1, 2, 3},
+   B from 1 to 16384, N up to the widest row, a base 4 bytes past
+   alignment, int32 coefficients) and timed beside its bound.
 3. Each kernel held against its plain PyTorch version on the card, at the
-   main path's shapes and on ragged ones: build bit-exact, score counts
+   main path's shapes and on ragged ones: build bit-exact (also over
+   :func:`bitmap_ragged`'s cases), score counts
    exact and measures within rtol 1e-5 / atol 1e-6, top-k equal up to
    provable score ties, band keys bit-exact (W not a multiple of the bands,
    more bands than words, B = W = 1). Score and top-k also at the shapes the
    tensor-core tile makes risky: W = 1, 5, 9, 17, 46 (not multiples of its
    8-word step), Q = 1, 63, 65, 129 (around its 64-row warpgroups), C < 256
    and C = 256 t +- 1 (around its 128-row tiles), a ``b_valid`` mask that
-   drops whole tiles, and k = 256. Then each timed with CUDA events
-   (median), beside its plain version and its bound on this card; the
+   drops whole tiles, and k = 256. Then each timed twice: ``ms``, the CUDA
+   events around the whole call (median; the host's launch path included),
+   and ``kernel_ms``, the device time of the kernels the call launched
+   under ``torch.profiler`` (median of 20 calls), beside its plain version
+   and its bound on this card; the
    counts form of the score kernel also beside ``torch._int_mm`` on the same
    bits expanded to int8 (the library yardstick of both count kernels).
 
-The line before the last lists the seven kernels as JSON, the one before it
+The line before the last lists the seven kernels as JSON (every phase's
+kernel rows carry ``ms`` and ``kernel_ms``), the one before it
 the card; before those, ``{"serve": ...}``, ``{"mutable": ...}``,
 ``{"prefilter": ...}`` and ``{"hash_mode": ...}`` lines with the end-to-end
 readings; the last line is the device summary. Without a card, or without
@@ -137,6 +144,65 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def profiled_calls(torch, fn, calls: int = 20, warm: int = 10) -> list:
+    """The device kernels of ``calls`` calls of ``fn`` as ``torch.profiler``
+    records them (CUDA activity): for each call, in order, its kernels'
+    (name, milliseconds).
+
+    Late in a long run the profiler was seen to lose the first four kernels
+    of a window, whatever the time between its start and theirs. So the
+    window opens with ``warm`` calls, then 100 ms of nothing, then the
+    measured calls, each ended by a sync, then 100 ms more; the measured
+    kernels are those after the last gap of over 50 ms. In order of start
+    they must fall into ``calls`` equal runs of the same names, else the run
+    fails, as it does if a call launched none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+        time.sleep(0.1)
+    events = prof.events()
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                      and not e.name.startswith(("Memcpy", "Memset"))),
+                     key=lambda e: e.time_range.start)
+    gaps = [i for i in range(1, len(kernels))
+            if kernels[i].time_range.start - kernels[i - 1].time_range.end > 50_000]
+    measured = kernels[gaps[-1]:] if gaps else kernels
+    if not measured or len(measured) % calls:
+        launched = sum(e.device_type == DeviceType.CPU and "LaunchKernel" in e.name
+                       for e in events)
+        fail(f"profiler: {len(measured)} kernels recorded over {calls} calls "
+             f"({len(kernels)} in the window, {launched} host launch events; "
+             f"{sorted({e.name[:60] for e in kernels})})")
+    per = len(measured) // calls
+    runs = [[(e.name, e.time_range.elapsed_us() / 1e3) for e in measured[i * per : (i + 1) * per]]
+            for i in range(calls)]
+    if any([n for n, _ in r] != [n for n, _ in runs[0]] for r in runs):
+        fail("profiler: the calls launched different kernels")
+    return runs
+
+
+def device_ms(torch, fn, calls: int = 20) -> float:
+    """Median milliseconds, over ``calls`` calls of ``fn``, of the summed
+    durations of the device kernels each call launched (:func:`profiled_calls`):
+    the kernels' own time, without the host's launch path that the CUDA
+    events of :func:`cuda_ms` also hold."""
+    return statistics.median(sum(ms for _, ms in run) for run in profiled_calls(torch, fn, calls))
+
+
+def timed(torch, fn, reps: int) -> dict:
+    """``ms``, the CUDA-event median of the whole call (:func:`cuda_ms`), and
+    ``kernel_ms``, its kernels' own device time (:func:`device_ms`)."""
+    return {"ms": cuda_ms(torch, fn, reps), "kernel_ms": device_ms(torch, fn)}
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = PEAK_OPS_PER_S):
@@ -221,6 +287,53 @@ def score_topk_ragged(torch, dev, gen, words) -> None:
                 want_t = ref.sketch_topk_ref(a, b, n_, m, k=k, b_valid=valid)
                 check_topk(torch, got_t, want_t, want,
                            f"sketch_topk {m} k={k} at Q={q_} C={c_} W={w_}")
+
+
+def bitmap_ragged(torch, dev, build: str) -> int:
+    """``build_sketch`` (``build == "sketch"``) or ``hash_build_sketch``
+    (``"hash"``) against its plain version where the warp-per-row kernel's
+    16-byte windows are ragged: P in 869..872 (rows starting at every offset
+    mod 4), B in 1, 3, 256, 16384, N in 1, 31, 517, 5859 and the widest row
+    (32 * MAX_WORDS), each from an aligned base and from a contiguous view 4
+    bytes past one (``flat[1 : 1 + B*P]``); ids >= N and negative, row 0 of
+    pads only; the hash build with its coefficients as int64 and as int32
+    holding the uint32 bits. The plain version runs 256 rows at a time
+    (its dense (B, N) intermediates). Returns the differing words (0)."""
+    from repro_torch.core import packed as pk
+    from repro_torch.hopper import ops, ref
+    from repro_torch.hopper.sketch_build import MAX_WORDS
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    co64 = torch.tensor([0x9E3779B1, 0xDEADBEEF], dtype=torch.int64, device=dev)
+    err = 0
+    for b_ in (1, 3, 256, 16384):
+        for p_ in (869, 870, 871, 872):
+            for n_ in (1, 31, 517, 5859, 32 * MAX_WORDS):
+                lo, hi = (-3, n_ + 40) if build == "sketch" else (-(1 << 31), (1 << 31) - 1)
+                ids = torch.randint(lo, hi, (b_, p_), generator=gen, device=dev,
+                                    dtype=torch.int64)
+                lens = torch.randint(0, p_ + 1, (b_, 1), generator=gen, device=dev)
+                ids = torch.where(torch.arange(p_, device=dev)[None, :] < lens, ids, -1)
+                flat = torch.empty(b_ * p_ + 1, dtype=torch.int32, device=dev)
+                flat[1:] = ids.reshape(-1)
+                if b_ > 1:
+                    flat[1 : 1 + p_] = -1  # a row of pads only
+                for view in (flat[1:].clone().view(b_, p_), flat[1:].view(b_, p_)):
+                    if build == "sketch":
+                        calls = [(lambda x: ops.build_sketch(x, n_),
+                                  lambda x: ref.build_sketch_ref(x, n_))]
+                    else:
+                        calls = [(lambda x, c=c: ops.hash_build_sketch(x, c, n_),
+                                  lambda x: ref.hash_build_ref(x, co64, n_))
+                                 for c in (co64, pk._to_int32_bits(co64))]
+                    for kernel, plain in calls:
+                        want = torch.cat([plain(view[s : s + 256])
+                                          for s in range(0, b_, 256)])
+                        err += exact_err(torch, kernel(view), want,
+                                         f"{build} build at {(b_, p_, n_)}, base "
+                                         f"{view.data_ptr() % 16} bytes past alignment")
+    torch.cuda.synchronize()
+    return err
 
 
 def serve_warm(torch, engine, queries, now, prefilter=None) -> float:
@@ -415,21 +528,21 @@ def mutable_phase(torch, dev, spec, n_bins: int):
     qn, w, w1 = qs.shape[0], cfg.n_words, pk.num_words(n1)
     chunks = -(-n_bins // n1)
     rows = []
-    for name, source, replaces, ms, plain_ms, n_bytes, n_ops, lib in [
+    for name, source, replaces, times, plain_ms, n_bytes, n_ops, lib in [
         ("count_bins", "src/repro_torch/hopper/csrc/count_bins.cu",
          "src/repro/kernels/count_update.py:49",
-         cuda_ms(torch, lambda: ops.count_bins(bins, n_bins), 20),
+         timed(torch, lambda: ops.count_bins(bins, n_bins), 20),
          cuda_ms(torch, lambda: ref.count_bins_ref(bins, n_bins), 5),
          4.0 * bsz * p + 4.0 * bsz * n_bins, float(bsz * p), lib_ms),
         ("rebucket", "src/repro_torch/hopper/csrc/rebucket.cu",
          "src/repro/kernels/rebucket.py:64",
-         cuda_ms(torch, lambda: ops.rebucket(qs, n_bins, n1), 50),
+         timed(torch, lambda: ops.rebucket(qs, n_bins, n1), 50),
          cuda_ms(torch, lambda: ref.rebucket_ref(qs, n_bins, n1), 10),
          4.0 * qn * (w + w1), 2.0 * qn * w1 * chunks, None),
     ]:
         b_ms, b_by = bound_ms(n_bytes, n_ops)
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": launches[name], "max_abs_err": max(errs[name]), "ms": ms,
+                     "launches": launches[name], "max_abs_err": max(errs[name]), **times,
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": lib})
     print(f"shapes: count_bins {tuple(bins.shape)} -> (B, N={n_bins}); rebucket "
@@ -516,7 +629,7 @@ def band_hash_rows(torch, dev, words, launches):
             "source": "src/repro_torch/hopper/csrc/band_hash.cu",
             "replaces": "src/repro/kernels/band_hash.py:50",
             "launches": launches["band_hash"], "max_abs_err": err,
-            "ms": cuda_ms(torch, lambda: ops.band_hash(words, 8), 20),
+            **timed(torch, lambda: ops.band_hash(words, 8), 20),
             "plain_ms": cuda_ms(torch, lambda: ref.band_hash_ref(words, 8), 3),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
@@ -808,9 +921,12 @@ def hash_mode_phase(torch, dev, spec, corpus, queries_np, truth_ids, n_bins: int
                               f"hash_build at {(b_, p_, n_)}"))
         if got[0].any():
             fail(f"hash_build set a bit from a row of pads at {(b_, p_, n_)}")
+    errs.append(bitmap_ragged(torch, dev, "hash"))
     torch.cuda.synchronize()
-    print("hash_build vs plain: all agree (exact) at the ingest shape and ragged ones; "
-          "library_ms: none (no single PyTorch call does a packed bit-scatter)")
+    print("hash_build vs plain: all agree (exact) at the ingest shape and ragged ones (P "
+          "869..872, B 1..16384, N 1..393216, bases aligned and 4 bytes past, coefficients "
+          "int64 and int32); library_ms: none (no single PyTorch call does a packed "
+          "bit-scatter)")
     bsz, p = rows.shape
     w = cfg.n_words
     b_ms, b_by = bound_ms(4.0 * bsz * p + 4.0 * bsz * w, 3.0 * bsz * p)
@@ -818,7 +934,7 @@ def hash_mode_phase(torch, dev, spec, corpus, queries_np, truth_ids, n_bins: int
            "source": "src/repro_torch/hopper/csrc/hash_build.cu",
            "replaces": "src/repro/kernels/hash_build.py:48",
            "launches": launches["hash_build"], "max_abs_err": max(errs),
-           "ms": cuda_ms(torch, lambda: ops.hash_build_sketch(rows, coeffs, n_bins), 20),
+           **timed(torch, lambda: ops.hash_build_sketch(rows, coeffs, n_bins), 20),
            "plain_ms": cuda_ms(torch, lambda: ref.hash_build_ref(rows, coeffs, n_bins), 3),
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     readings = {"n_docs": n, "n_bins": n_bins, "build_s": t_build, "docs_per_s": n / t_build,
@@ -956,6 +1072,7 @@ def main(argv=None) -> int:
         build_err = max(build_err, exact_err(torch, ops.build_sketch(rb, n_),
                                              ref.build_sketch_ref(rb, n_),
                                              f"build_sketch at {(b_, p_, n_)}"))
+    build_err = max(build_err, bitmap_ragged(torch, dev, "sketch"))
     score_topk_ragged(torch, dev, gen, words)
     for q_, c_, n_ in [(9, 130, 517), (130, 300, 1000), (1, 1, 32), (65, 4099, 2048)]:
         a, b = words(q_, n_, 0.1), words(c_, n_, 0.1)
@@ -999,37 +1116,38 @@ def main(argv=None) -> int:
     pair_macs = 32.0 * qn * cn * w  # bit-AND-popcount multiply-adds on the tensor cores
     rows = []
 
-    def row(name, source, replaces, ms, plain_ms, n_bytes, n_ops, err, ops_per_s=PEAK_OPS_PER_S,
-            library_ms=None, **extra):
+    def row(name, source, replaces, times, plain_ms, n_bytes, n_ops, err,
+            ops_per_s=PEAK_OPS_PER_S, library_ms=None, **extra):
         b_ms, b_by = bound_ms(n_bytes, n_ops, ops_per_s)
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": launches[name], "max_abs_err": err, "ms": ms,
+                     "launches": launches[name], "max_abs_err": err, **times,
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": library_ms, **extra})
 
     row("build_sketch", "src/repro_torch/hopper/csrc/sketch_build.cu",
         "src/repro/kernels/sketch_build.py:51",
-        cuda_ms(torch, lambda: ops.build_sketch(bins, n), 20),
+        timed(torch, lambda: ops.build_sketch(bins, n), 20),
         cuda_ms(torch, lambda: ref.build_sketch_ref(bins, n), 3),
         4.0 * bsz * p + 4.0 * bsz * w, float(bsz * p), build_err)
     row("sketch_score", "src/repro_torch/hopper/csrc/popcount_sim.cu",
         "src/repro/kernels/popcount_sim.py:120",
-        cuda_ms(torch, lambda: ops.sketch_score(qs, corpus, n, "jaccard", a_fills=qf,
-                                                b_fills=fills), 5),
+        timed(torch, lambda: ops.sketch_score(qs, corpus, n, "jaccard", a_fills=qf,
+                                              b_fills=fills), 5),
         cuda_ms(torch, lambda: ref.sketch_score_ref(qs, corpus, n, "jaccard", a_fills=qf,
                                                     b_fills=fills), 2),
         4.0 * (qn + cn) * (w + 1) + 4.0 * qn * cn, pair_macs, score_err, rate, lib_ms,
         counts_ms=counts_ms)
     row("sketch_topk", "src/repro_torch/hopper/csrc/topk_stream.cu",
         "src/repro/kernels/topk_stream.py:146",
-        cuda_ms(torch, lambda: ops.sketch_topk(qs, corpus, n, "jaccard", k=10, a_fills=qf,
-                                               b_fills=fills), 5),
+        timed(torch, lambda: ops.sketch_topk(qs, corpus, n, "jaccard", k=10, a_fills=qf,
+                                             b_fills=fills), 5),
         cuda_ms(torch, lambda: ref.sketch_topk_ref(qs, corpus, n, "jaccard", k=10,
                                                    a_fills=qf, b_fills=fills), 2),
         4.0 * (qn + cn) * (w + 1) + 8.0 * qn * 10, pair_macs, topk_err, rate, lib_ms)
     rows += mut_rows + [band_row, hash_row]
     for r in rows:
-        print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.2f} ms, bound "
+        print(f"  {r['name']}: {r['ms']:.4f} ms, kernels {r['kernel_ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.2f} ms, bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']}, {r['launches']} launches)")
     print(f"shapes: build {tuple(bins.shape)} -> W={w} (N={n}); score/topk "
           f"Q={qn} x C={cn} x W={w}, k=10; score and top-k bounds from the measured b1 rate "

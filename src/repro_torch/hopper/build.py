@@ -39,11 +39,14 @@ _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
 _FLOAT = ctypes.c_float
 _LONG = ctypes.c_longlong
+_ULONG = ctypes.c_ulonglong
 # argtypes of every C entry point, by library
 _SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "sketch_build": {
-        # bins, B, P, n_bins, W, out, stream
-        "sketch_build": (_VOIDP, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP),
+        # bins, B, P, n_bins, W, rows_per_block, smem_bytes, vec_in, vec_out,
+        # out, stream
+        "sketch_build": (_VOIDP, _INT, _INT, _INT, _INT, _INT, _LONG, _INT, _INT, _VOIDP,
+                         _VOIDP),
     },
     "popcount_sim": {
         # a, b, na, nb, Q, C, W, measure, card, inv, n_bins, out, warpgroups,
@@ -77,8 +80,10 @@ _SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "band_hash": (_VOIDP, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP),
     },
     "hash_build": {
-        # idx, B, P, coeffs, n_bins, W, out, stream
-        "hash_build": (_VOIDP, _INT, _INT, _VOIDP, _INT, _INT, _VOIDP, _VOIDP),
+        # idx, B, P, coeffs, n_bins, recip, W, rows_per_block, smem_bytes,
+        # vec_in, vec_out, out, stream
+        "hash_build": (_VOIDP, _INT, _INT, _VOIDP, _INT, _ULONG, _INT, _INT, _LONG, _INT,
+                       _INT, _VOIDP, _VOIDP),
     },
 }
 
@@ -163,7 +168,8 @@ def require_cuda(t, what: str) -> None:
 
 
 def stream_handle(t) -> int:
-    """PyTorch's current stream on the tensor's device, as the C side's void*."""
+    """PyTorch's current stream on the tensor's device, as the C side's void*
+    (the raw handle: no ``torch.cuda.Stream`` object is made for it)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

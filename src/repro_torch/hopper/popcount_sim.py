@@ -151,6 +151,7 @@ def vec16(a: torch.Tensor, b: torch.Tensor) -> int:
     return int(a.shape[1] % 4 == 0 and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
 
 
+@functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 

@@ -161,3 +161,85 @@ def test_hash_build_kernel(dev, b, p, n_bins):
     assert ops.launches["hash_build"] == before + 1
     assert torch.equal(got, ref.hash_build_ref(idx, coeffs, n_bins))
     assert not got[0].any()
+
+
+def _ragged_ids(gen, b, p, lo, hi, dev):
+    """(b, p) int32 ids drawn from [lo, hi), ragged rows padded with -1; row 0
+    all pads where there are other rows."""
+    ids = torch.randint(lo, hi, (b, p), generator=gen, device=dev, dtype=torch.int64)
+    lens = torch.randint(0, p + 1, (b, 1), generator=gen, device=dev)
+    ids = torch.where(torch.arange(p, device=dev)[None, :] < lens, ids, -1).to(torch.int32)
+    if b > 1:
+        ids[0] = -1
+    return ids
+
+
+def _misaligned(ids):
+    """The same ids as a contiguous view 4 bytes past a 16-byte-aligned base:
+    ``flat[1 : 1 + B*P].view(B, P)``."""
+    b, p = ids.shape
+    flat = torch.empty(b * p + 1, dtype=torch.int32, device=ids.device)
+    view = flat[1 : 1 + b * p].view(b, p)
+    view.copy_(ids)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+def _in_row_chunks(fn, ids, rows=256):
+    """The plain version row chunk by row chunk, where a whole batch of the
+    widest rows would not fit its dense (B, N) intermediates."""
+    return torch.cat([fn(ids[s : s + rows]) for s in range(0, ids.shape[0], rows)])
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("p", [869, 870, 871, 872])
+@pytest.mark.parametrize("b", [1, 3, 256, 16384])
+def test_bitmap_builds_ragged(dev, b, p, aligned):
+    """Both builds of the warp-per-row kernel, bit-exact to their plain
+    versions where its 16-byte windows are ragged: P % 4 in {0, 1, 2, 3}
+    around the ingest shape's 870, a base 4 bytes past alignment, one row to
+    an ingest batch, N from 1 to the widest row (32 * MAX_WORDS), ids >= N
+    and negative, rows of pads only, coefficients as int64 and as int32
+    holding the uint32 bits."""
+    from repro_torch.hopper.sketch_build import MAX_WORDS
+
+    gen = torch.Generator(device=dev).manual_seed(b * 1000 + p)
+    coeffs64 = torch.tensor([0x9E3779B1, 0xDEADBEEF], dtype=torch.int64, device=dev)
+    coeffs32 = pk._to_int32_bits(coeffs64)
+    for n_bins in (1, 31, 517, 5859, 32 * MAX_WORDS):
+        bins = _ragged_ids(gen, b, p, -3, n_bins + 40, dev)
+        idx = _ragged_ids(gen, b, p, -(1 << 31), (1 << 31) - 1, dev)
+        if not aligned:
+            bins, idx = _misaligned(bins), _misaligned(idx)
+        before = dict(ops.launches)
+        got = ops.build_sketch(bins, n_bins)
+        assert torch.equal(got, _in_row_chunks(lambda x: ref.build_sketch_ref(x, n_bins), bins))
+        for co in (coeffs64, coeffs32):
+            got = ops.hash_build_sketch(idx, co, n_bins)
+            want = _in_row_chunks(lambda x: ref.hash_build_ref(x, coeffs64, n_bins), idx)
+            assert torch.equal(got, want)
+            if b > 1:
+                assert not got[0].any()
+        assert ops.launches["build_sketch"] == before["build_sketch"] + 1
+        assert ops.launches["hash_build"] == before["hash_build"] + 2
+
+
+def test_hash_build_is_one_kernel(dev):
+    """At the hash-mode ingest shape, a call of ``ops.hash_build_sketch`` on
+    the mapping's int64 coefficients puts exactly one operation on the card,
+    the build kernel, as ``torch.profiler`` records it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    idx = _ragged_ids(gen, 16384, 870, 0, (1 << 31) - 1, dev)
+    coeffs = torch.tensor([0x9E3779B1, 0xDEADBEEF], dtype=torch.int64, device=dev)
+    ops.hash_build_sketch(idx, coeffs, 5859)  # build and load the library first
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            ops.hash_build_sketch(idx, coeffs, 5859)
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(on_card) == 5, on_card
+    assert all("bitmap_build_kernel" in name for name in on_card), on_card
