@@ -83,12 +83,48 @@ Phases, each fatal on failure (nothing is caught while the run goes on):
    counts form of the score kernel also beside ``torch._int_mm`` on the same
    bits expanded to int8 (the library yardstick of both count kernels).
 
+2f. The operations plane, run after phase 3 (late in a long run
+   ``torch.profiler`` loses kernels, so the timings come first), at phase 2b's
+   configuration with ``BandPolicy(n_bands=8)``. Phases 2–2e, run with no
+   fault plan, must each end with ``health()`` clean: no degraded component,
+   no failed, abandoned or refused job. Then:
+   *background*: ``serve`` with ``background_compact=True``, the compaction
+   and both ladder passes as supervised jobs; every batch served while a job
+   is pending is held to the exhaustive answers over the store as it stands
+   (each (id, score) the id's own score, and the batch served with
+   ``prefilter=False`` the exact top-k up to ties, within rtol 1e-5 / atol
+   1e-6, the truth from ``Backend.score`` at each view's width); after the
+   swaps the store's 1024 answers must be bit-equal to phase 2b's
+   synchronous store's. A compaction and then a distillation are held
+   (``_hold``) while deletes and relocating updates land; queries during and
+   after each are held to the store as it stands; ``band_hash`` must launch
+   for each held job's band index (a compaction's at its snapshot, a
+   distillation's in its swap). ``count_bins``, ``band_hash``, ``rebucket``,
+   ``build_sketch`` and ``sketch_topk`` must launch (counters zeroed before
+   the ``serve``, read after the held jobs).
+   *checkpoint*: a blocking save, a restore onto the card into a fresh
+   store, the two stores' answers bit-equal; save and restore seconds,
+   checkpoint bytes and the head's counter bytes are printed.
+   *chaos*: ``serve`` under ``chaos=0.3, chaos_seed=1234``: no query raises,
+   every (id, score) served is the exhaustive one, every fault fired is
+   accounted for in ``health()`` (a retry, failure or abandon of its job, a
+   degraded component) or, for torn leaves, by a generation that fails
+   verification, and the restore lands on one that verifies.
+   *left behind*: no job pending on any of the phase's stores, every thread
+   the phase started ended, no fault plan armed and no metrics registry
+   installed; then, as a reading, how many of 20 one-kernel calls
+   ``torch.profiler`` records after the phase.
+
 The line before the last lists the seven kernels as JSON (every phase's
-kernel rows carry ``ms`` and ``kernel_ms``), the one before it
-the card; before those, ``{"serve": ...}``, ``{"mutable": ...}``,
-``{"prefilter": ...}`` and ``{"hash_mode": ...}`` lines with the end-to-end
-readings; the last line is the device summary. Without a card, or without
-the repository beside this file, it exits non-zero and prints no result.
+kernel rows carry ``ms`` and ``kernel_ms``; ``rebucket``'s also its launch
+floor, ``floor_ms`` and ``floor_kernel_ms`` on a (1, 1)-word input), the one
+before it the card; before those, ``{"serve": ...}``, ``{"mutable": ...}``,
+``{"prefilter": ...}``, ``{"hash_mode": ...}`` and ``{"ops_plane": ...}``
+lines with the end-to-end readings; the last line is the device summary.
+Every ``serve`` of the run draws each corpus once: :func:`share_corpora`
+memoises the generator ``serve`` calls, for this process (generation is
+most of the run's host time). Without a card, or without the
+repository beside this file, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -100,6 +136,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -158,6 +195,27 @@ def profiled_calls(torch, fn, calls: int = 20, warm: int = 10) -> list:
     kernels are those after the last gap of over 50 ms. In order of start
     they must fall into ``calls`` equal runs of the same names, else the run
     fails, as it does if a call launched none."""
+
+    measured, kernels, events = profiler_window(torch, fn, calls, warm)
+    if not measured or len(measured) % calls:
+        launched = sum(e.device_type == DeviceType.CPU and "LaunchKernel" in e.name
+                       for e in events)
+        fail(f"profiler: {len(measured)} kernels recorded over {calls} calls "
+             f"({len(kernels)} in the window, {launched} host launch events; "
+             f"{sorted({e.name[:60] for e in kernels})})")
+    from torch.autograd import DeviceType
+
+    per = len(measured) // calls
+    runs = [[(e.name, e.time_range.elapsed_us() / 1e3) for e in measured[i * per : (i + 1) * per]]
+            for i in range(calls)]
+    if any([n for n, _ in r] != [n for n, _ in runs[0]] for r in runs):
+        fail("profiler: the calls launched different kernels")
+    return runs
+
+
+def profiler_window(torch, fn, calls: int, warm: int):
+    """One profiler window of :func:`profiled_calls`: (the kernels after its
+    last gap, every kernel of the window, every event)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -176,19 +234,7 @@ def profiled_calls(torch, fn, calls: int = 20, warm: int = 10) -> list:
                      key=lambda e: e.time_range.start)
     gaps = [i for i in range(1, len(kernels))
             if kernels[i].time_range.start - kernels[i - 1].time_range.end > 50_000]
-    measured = kernels[gaps[-1]:] if gaps else kernels
-    if not measured or len(measured) % calls:
-        launched = sum(e.device_type == DeviceType.CPU and "LaunchKernel" in e.name
-                       for e in events)
-        fail(f"profiler: {len(measured)} kernels recorded over {calls} calls "
-             f"({len(kernels)} in the window, {launched} host launch events; "
-             f"{sorted({e.name[:60] for e in kernels})})")
-    per = len(measured) // calls
-    runs = [[(e.name, e.time_range.elapsed_us() / 1e3) for e in measured[i * per : (i + 1) * per]]
-            for i in range(calls)]
-    if any([n for n, _ in r] != [n for n, _ in runs[0]] for r in runs):
-        fail("profiler: the calls launched different kernels")
-    return runs
+    return (kernels[gaps[-1]:] if gaps else kernels), kernels, events
 
 
 def device_ms(torch, fn, calls: int = 20) -> float:
@@ -336,6 +382,20 @@ def bitmap_ragged(torch, dev, build: str) -> int:
     return err
 
 
+def share_corpora() -> None:
+    """Memoise, for this process, the corpus generator that ``serve`` calls:
+    every ``serve`` of the run asks for the same few (spec, seed) corpora,
+    and numpy's Zipf draws over 300,000 x 870 ids take about 20 s each on
+    the card's host. The corpora are read only, so sharing them changes no
+    answer."""
+    import functools
+
+    from repro_torch.launch import serve as serve_mod
+
+    if not hasattr(serve_mod.generate_corpus, "cache_info"):
+        serve_mod.generate_corpus = functools.lru_cache(maxsize=None)(serve_mod.generate_corpus)
+
+
 def serve_warm(torch, engine, queries, now, prefilter=None) -> float:
     """Queries per second of serving ``queries`` again in batches of 256."""
     torch.cuda.synchronize()
@@ -346,13 +406,14 @@ def serve_warm(torch, engine, queries, now, prefilter=None) -> float:
     return len(queries) / (time.perf_counter() - t0)
 
 
-def view_truth(torch, engine, queries, now):
-    """(Q, next_id) float32 plain-version scores of every live doc, each
-    scored at its own view's width from the folded query sketch; -inf for
-    ids that are not live. The tie truth of a mixed-width store."""
+def view_truth(torch, engine, queries, now, backend=None):
+    """(Q, next_id) float32 scores of every live doc, each scored at its own
+    view's width from the folded query sketch, by ``backend`` (default: the
+    plain versions); -inf for ids that are not live. The tie truth of a
+    mixed-width store, and the exhaustive answers over a store as it stands."""
     from repro_torch.engine import ReferenceBackend
 
-    ref_be, cfg = ReferenceBackend(), engine.cfg
+    ref_be, cfg = backend or ReferenceBackend(), engine.cfg
     qs = ref_be.sketch(cfg, engine.store.mapping, queries)
     truth = torch.full((len(queries), engine.store.next_id), float("-inf"),
                        device=queries.device)
@@ -391,6 +452,13 @@ def mutable_phase(torch, dev, spec, n_bins: int):
             fail(f"kernel {name} never launched on the mutable path")
     engine, pre = out["engine"], out["pre_distill"]
     cfg, mapping, now = engine.cfg, engine.store.mapping, out["serve_now"]
+    # the served answers of the synchronous lifecycle, for phase 2f
+    sync_ref = {"queries": out["queries"], "now": now, "scores": out["scores"],
+                "ids": out["ids"]}
+    counters = engine.store.head.counters
+    head_bytes = counters.element_size() * counters.numel()
+    print(f"head counters: {tuple(counters.shape)} {counters.dtype}, {head_bytes} bytes "
+          f"({counters.element_size()} a bin)")
     if pre["recall"] < 0.3:
         fail(f"recall@10 over the survivors before distillation {pre['recall']:.3f} below 0.3")
     print(f"recall@10 over survivors: {pre['recall']:.4f} before distillation, "
@@ -525,9 +593,13 @@ def mutable_phase(torch, dev, spec, n_bins: int):
     ones = keep_b.to(torch.int32)
     lib_ms = cuda_ms(torch, lambda: torch.zeros((bsz, n_bins), dtype=torch.int32,
                                                 device=dev).scatter_add_(1, safe, ones), 10)
+    # rebucket's launch floor: the same wrapper on a (1, 1)-word input
+    one = torch.full((1, 1), 0x0F0F0F0F, dtype=torch.int32, device=dev)
+    floor = timed(torch, lambda: ops.rebucket(one, 32, 16), 50)
     qn, w, w1 = qs.shape[0], cfg.n_words, pk.num_words(n1)
     chunks = -(-n_bins // n1)
     rows = []
+    extra = {"rebucket": {"floor_ms": floor["ms"], "floor_kernel_ms": floor["kernel_ms"]}}
     for name, source, replaces, times, plain_ms, n_bytes, n_ops, lib in [
         ("count_bins", "src/repro_torch/hopper/csrc/count_bins.cu",
          "src/repro/kernels/count_update.py:49",
@@ -544,7 +616,11 @@ def mutable_phase(torch, dev, spec, n_bins: int):
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[name], "max_abs_err": max(errs[name]), **times,
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": lib})
+                     "library_ms": lib, **extra.get(name, {})})
+    rb = rows[-1]
+    print(f"rebucket launch floor: kernel {rb['kernel_ms']:.6f} ms at (256, {w}) against "
+          f"{floor['kernel_ms']:.6f} ms at (1, 1) (call {rb['ms']:.6f} vs {floor['ms']:.6f} ms): "
+          f"ratio {rb['kernel_ms'] / floor['kernel_ms']:.3f} (at the floor if <= 1.2)")
     print(f"shapes: count_bins {tuple(bins.shape)} -> (B, N={n_bins}); rebucket "
           f"({qn}, {w}) -> N'={n1} ({w1} words, {chunks} chunks); library_ms of count_bins: "
           "torch.zeros + scatter_add_ on pre-masked ids; rebucket: none (no single PyTorch "
@@ -560,11 +636,13 @@ def mutable_phase(torch, dev, spec, n_bins: int):
         "recall_before_distill": pre["recall"], "recall_after_distill": out["recall"],
         "recall_fresh_at_n2_direct_map": recall_consistent,
         "bytes_per_doc": out["bytes_per_doc"], "base_bytes_per_doc": cfg.n_words * 4,
-        "head_counter_bytes": 4 * out["n_docs"] * n_bins, "peak_device_bytes": peak_bytes,
+        "head_counter_bytes": head_bytes, "head_counter_bytes_per_bin":
+        counters.element_size(), "peak_device_bytes": peak_bytes,
         "topk_chunk_ms_base": topk_ms["base"], "topk_chunk_ms_distilled": topk_ms["distilled"],
         "mixed_max_abs_err": mixed_err,
+        "jobs": assert_healthy(engine, "2b"),
     }
-    return rows, readings
+    return rows, readings, sync_ref
 
 def candidate_ids(torch, engine, queries, now) -> np.ndarray:
     """Doc ids a prefiltered query of the batch ``queries`` must score, found
@@ -741,6 +819,7 @@ def prefilter_phase(torch, dev, spec):
           "(no floor)")
     stages = prefilter_stages(torch, engine, queries[:256], now)
     print(f"prefilter: one 256-query chunk, ms by stage (host clock, synced): {stages}")
+    jobs = assert_healthy(engine, "2c")
     seg = max(store.sealed, key=lambda x: x.n_rows)
     row = band_hash_rows(torch, dev, seg.sketches, launches)
     readings = {
@@ -753,7 +832,7 @@ def prefilter_phase(torch, dev, spec):
         "warm_queries_per_s_exhaustive": qps_ex, "speedup": qps_pf / qps_ex,
         "recall": out["recall"], "recall_exhaustive": recall_ex,
         "ingest_docs_per_s": out["docs_per_s"], "mutate_s": out["mutate_s"],
-        "max_abs_err": worst, "chunk_stage_ms": stages,
+        "max_abs_err": worst, "chunk_stage_ms": stages, "jobs": jobs,
     }
     return row, readings
 
@@ -840,6 +919,7 @@ def prefilter_scale_phase(torch, dev, n_docs: int):
     qps_pf = queries / statistics.median(times[True])
     qps_ex = queries / statistics.median(times[False])
     stages = prefilter_stages(torch, engine, q)
+    assert_healthy(engine, "2d")
     print(f"prefilter at scale: {n_docs} clustered docs in {segments} segments (ingest "
           f"{n_docs / t_ingest:.1f} docs/s), {queries} near-duplicate queries: recall@10 vs "
           f"exhaustive {recall:.4f} (floor 0.95), candidate fraction {frac:.6f}, "
@@ -898,6 +978,7 @@ def hash_mode_phase(torch, dev, spec, corpus, queries_np, truth_ids, n_bins: int
     if recall < 0.3:
         fail(f"hash-mode recall@10 {recall:.3f} below 0.3")
     warm = serve_warm(torch, engine, queries, None)
+    assert_healthy(engine, "2e")
     print(f"hash mode: {n} docs hash-built at N={n_bins} in {t_build:.3f}s "
           f"({n / t_build:.1f} docs/s), every batch bit-equal to map-then-build; "
           f"{len(queries)} queries, recall@10 vs exact Jaccard {recall:.4f} (floor 0.3), "
@@ -941,6 +1022,266 @@ def hash_mode_phase(torch, dev, spec, corpus, queries_np, truth_ids, n_bins: int
                 "queries_per_s": len(queries) / t_serve, "warm_queries_per_s": warm,
                 "recall": recall}
     return row, readings
+
+
+def assert_healthy(engine, phase: str, allow=()) -> dict:
+    """A phase run with no fault plan records nothing: no degraded component
+    (but those in ``allow``), no failed, abandoned or refused job, no
+    quarantine (the fallbacks of the operations plane must never hide a
+    kernel or a card fault). Returns the job counters."""
+    h = engine.health()
+    bad = {op: c for op, c in h["jobs"].items()
+           if c.get("failed") or c.get("abandoned") or c.get("refused")}
+    degraded = [d for d in h["degraded"] if d["component"] not in allow]
+    if degraded or bad or h["quarantined"]:
+        fail(f"phase {phase} ran with no fault plan but recorded degraded {degraded}, "
+             f"jobs {bad}, quarantined {h['quarantined']}")
+    return h["jobs"]
+
+
+def assert_nothing_left(threads_before) -> dict:
+    """What the operations plane could leave to the rest of the process (and
+    to ``torch.profiler``): a worker thread still alive (a job in flight, an
+    asynchronous save), an armed fault plan, an installed metrics registry.
+    Threads started since ``threads_before`` are joined (a finished job's
+    thread ends at once; ten seconds each at most) and must all have ended;
+    the plan and the registry must be gone. Returns the readings."""
+    from repro_torch import faults
+    from repro_torch.obs import metrics as obs_metrics
+
+    started = [t for t in threading.enumerate() if t not in threads_before]
+    for t in started:
+        t.join(timeout=10.0)
+    alive = [t.name for t in started if t.is_alive()]
+    if alive or faults.active() is not None or obs_metrics.active() is not None:
+        fail(f"the operations plane left threads {alive} alive, fault plan "
+             f"{faults.active()}, metrics registry {obs_metrics.active()}")
+    return {"threads_started": len(started), "threads_alive": len(alive),
+            "active_count": threading.active_count(), "fault_plan": None, "metrics": None}
+
+
+def check_as_it_stands(torch, engine, q, now, sc, ix, what: str, exhaustive: bool = True):
+    """Answers served by ``engine`` just now against the exhaustive scores over
+    its store as it stands (``Backend.score`` at each view's width: what
+    ``score_all`` gives on a store of one width): each returned (id, score) is
+    a live id with its own score, within rtol 1e-5 / atol 1e-6. With
+    ``exhaustive``, the batch is served again with ``prefilter=False`` and must
+    be the exact top-k up to score ties (the truth is taken anew if that
+    query's poll swapped a finished job in). Returns the largest difference."""
+    from repro_torch.hopper import ref
+
+    truth = view_truth(torch, engine, q, now, engine.backend)
+    ix = ix.long()
+    finite = torch.isfinite(sc)
+    own = torch.gather(truth, 1, ix.clamp_min(0))
+    if not torch.isfinite(own[finite]).all():
+        fail(f"{what}: an id served is not live in the store as it stands")
+    err = float((sc[finite] - own[finite]).abs().max()) if finite.any() else 0.0
+    if not torch.allclose(sc[finite], own[finite], rtol=RTOL, atol=ATOL):
+        fail(f"{what}: served scores differ from the exhaustive ones by up to {err}")
+    if exhaustive:
+        layout = [id(x) for x in engine.store.sealed]
+        ex_s, ex_i = engine.query(q, 10, now=now, prefilter=False)
+        if [id(x) for x in engine.store.sealed] != layout:
+            truth = view_truth(torch, engine, q, now, engine.backend)
+        cols = torch.arange(truth.shape[1], dtype=torch.int32, device=truth.device)
+        want = ref.select_topk(truth, cols.expand_as(truth), 10)
+        err = max(err, check_topk(torch, (ex_s, ex_i.long()), (want[0], want[1].long()), truth,
+                                  f"{what}, exhaustive"))
+    return err
+
+
+def ops_plane_phase(torch, dev, spec, n_bins: int, sync_ref: dict) -> dict:
+    """Phase 2f: the operations plane on the card, at phase 2b's
+    configuration with ``BandPolicy(n_bands=8)``. Returns its readings."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.engine import DistillPolicy, SegmentedStore, SketchEngine
+    from repro_torch.hopper import ops
+    from repro_torch.launch.serve import serve
+
+    n1, n2 = n_bins // 2, n_bins // 4
+    kw = dict(queries=1024, topk=10, rho=0.05, batch=256, ingest_batch=16384, backend="cuda",
+              device=dev, mutate_rate=0.3, distill=(n1, n2), prefilter=True, bands=8)
+    seen = {"checked": 0, "err": 0.0}
+
+    def pending_check(engine, rows, sc, ix, pending, now):
+        if pending is None:
+            return
+        q = torch.from_numpy(rows).to(dev)
+        seen["err"] = max(seen["err"], check_as_it_stands(
+            torch, engine, q, now, sc, ix, f"batch served with {pending} pending"))
+        seen["checked"] += 1
+
+    # ---- background: serve with the compaction and the ladder as jobs
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = serve(spec, background_compact=True, on_batch=pending_check, **kw)
+    t_serve = time.perf_counter() - t0
+    engine, now = out["engine"], out["serve_now"]
+    if not np.array_equal(out["queries"], sync_ref["queries"]) or now != sync_ref["now"]:
+        fail("phase 2f's queries differ from phase 2b's")
+    if {s.n_bins for s in engine.store.sealed} != {n2} or out["n_tiers"] != 2:
+        fail(f"the background ladder ended at {[s.n_bins for s in engine.store.sealed]}")
+    queries = torch.from_numpy(out["queries"]).to(dev)
+    settled = [engine.query(queries[s : s + 256], 10, now=now, prefilter=False)
+               for s in range(0, len(queries), 256)]
+    got_s = torch.cat([x[0] for x in settled]).cpu()
+    got_i = torch.cat([x[1] for x in settled]).cpu()
+    if not (torch.equal(got_s, torch.from_numpy(sync_ref["scores"]))
+            and torch.equal(got_i, torch.from_numpy(sync_ref["ids"]))):
+        fail("after its background swaps the store answers otherwise than phase 2b's "
+             "synchronous store")
+    print(f"background: {out['pending_batches']} serve batch(es) with a job pending, each "
+          f"equal to the exhaustive answers over the store as it stood; after the swaps, "
+          f"1024 answers bit-equal to phase 2b's synchronous store ({t_serve:.2f}s)")
+
+    # ---- held jobs on the card: mutations land while a job is pinned
+    store = engine.store
+    rng = np.random.default_rng(11)
+    live = np.concatenate([x.ids[x.valid] for x in store.sealed])
+    victims = rng.choice(live, 2000, replace=False)
+    fresh_rows = out["corpus"][::-1]  # other docs' contents, as updates and new docs
+    engine.delete(victims[:1000])
+    held = {}
+    for op in ("compact", "distill"):
+        hold = threading.Event()
+        # the band keys of the rewritten rows are hashed on the card: a
+        # compaction's at its snapshot, a distillation's in its swap
+        before = ops.launches["band_hash"]
+        if op == "compact":
+            engine.compact(background=True, _hold=hold)
+            hashed = ops.launches["band_hash"] - before
+        else:
+            engine.seal()  # the relocated docs: a base-width segment to fold
+            engine.distill(DistillPolicy(widths=(n2,)), now=now, background=True, _hold=hold)
+        if store.job_pending != op:
+            fail(f"no {op} job pending under its hold")
+        if op == "compact":  # deletes and relocating updates land mid-job
+            engine.delete(victims[1000:1500])
+            engine.update(victims[1500:2000], fresh_rows[:500], now=now)
+        else:
+            engine.delete(victims[1500:1600])  # tombstones in the folding segment
+        errs = [check_as_it_stands(torch, engine, queries[s : s + 256], now,
+                                   *engine.query(queries[s : s + 256], 10, now=now),
+                                   f"query with a held {op} job")
+                for s in (0, 256)]
+        if store.job_pending != op:
+            fail(f"the held {op} job was swapped in before its release")
+        hold.set()
+        before = ops.launches["band_hash"]
+        stats = engine.wait_compaction()
+        if op == "distill":
+            hashed = ops.launches["band_hash"] - before
+        if stats is None:
+            fail(f"the held {op} job failed: {engine.health()['last_error']}")
+        if hashed < 1:
+            fail(f"the background {op} built its band index without the band_hash kernel")
+        errs.append(check_as_it_stands(torch, engine, queries[:256], now,
+                                       *engine.query(queries[:256], 10, now=now),
+                                       f"query after the {op} swap"))
+        held[op] = {**stats, "tombstones_after": int(sum(x.n_rows - x.n_live
+                                                        for x in store.sealed)),
+                    "band_hash_launches": hashed, "max_abs_err": max(errs)}
+    engine.add(fresh_rows[500:4596], batch=4096, now=now)  # head rows for the checkpoint
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    print(f"operations plane launches: {launches}")
+    for name in ("count_bins", "band_hash", "rebucket", "build_sketch", "sketch_topk"):
+        if launches[name] < 1:
+            fail(f"kernel {name} never launched on the operations plane's path")
+    # the escape hatch is selectivity, not a fault: the held jobs' queries
+    # hit small fresh segments
+    jobs = assert_healthy(engine, "2f (background)", allow=("prefilter_hatch",))
+    print(f"held jobs: {held}")
+
+    # ---- checkpoint: save blocking, restore onto the card, bit-equal answers
+    ckpt = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        mgr = CheckpointManager(ckpt, keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store.save(mgr, step=1, blocking=True)
+        save_s = time.perf_counter() - t0
+        step_dir = pathlib.Path(ckpt) / ("step_%012d" % 1)
+        ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+        keys = json.loads((step_dir / "tree.json").read_text())["keys"]
+        head_leaf = np.load(step_dir / ("leaf_%05d.npy" % keys.index("['head']['counters']")),
+                            mmap_mode="r")
+        t0 = time.perf_counter()
+        back = SegmentedStore.restore(mgr, device=dev, backend=engine.backend)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        other = SketchEngine(back, engine.backend, engine.measure, engine.planner)
+        for s in range(0, len(queries), 256):
+            a = engine.query(queries[s : s + 256], 10, now=now)
+            b = other.query(queries[s : s + 256], 10, now=now)
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                fail("the restored store answers otherwise than the saved one")
+        counters = store.head.counters
+        checkpoint = {"save_s": save_s, "restore_s": restore_s, "bytes": ckpt_bytes,
+                      "head_rows": int(store.head.size), "sealed_rows":
+                      [x.n_rows for x in store.sealed],
+                      "head_counter_leaf": [str(head_leaf.dtype), list(head_leaf.shape)],
+                      "head_counter_bytes_saved": int(head_leaf.nbytes),
+                      "head_counter_bytes_allocated":
+                      counters.element_size() * counters.numel()}
+        del head_leaf
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if store.job_pending is not None or back.job_pending is not None:
+        fail("a background job is still pending after the checkpoint")
+    print(f"checkpoint: {checkpoint}; the restored store's 1024 answers bit-equal")
+    background = {"serve_s": t_serve, "pending_batches": out["pending_batches"],
+                  "checked_batches": seen["checked"], "max_abs_err": seen["err"],
+                  "recall": out["recall"], "distill_s": out["distill_s"],
+                  "n_tiers": out["n_tiers"], "launches": launches, "jobs": jobs,
+                  "held": held}
+    del engine, store, out, back, other
+    torch.cuda.empty_cache()
+
+    # ---- chaos: the seeded plan over the same lifecycle
+    seen.update(checked=0, err=0.0)
+
+    def chaos_check(engine, rows, sc, ix, pending, now):
+        q = torch.from_numpy(rows).to(dev)
+        seen["err"] = max(seen["err"], check_as_it_stands(
+            torch, engine, q, now, sc, ix, "batch served under chaos", exhaustive=False))
+        seen["checked"] += 1
+
+    out = serve(spec, chaos=0.3, chaos_seed=1234, on_batch=chaos_check, **kw)
+    c, h = out["chaos"], out["health"]
+    if out["engine"].store.job_pending is not None:
+        fail(f"a {out['engine'].store.job_pending} job is still pending after the chaos serve")
+    deg = {d["component"]: d["count"] for d in h["degraded"]}
+    accounted = {}
+    for point, op in (("compact.work", "compact"), ("distill.work", "distill"),
+                      ("checkpoint.write", "checkpoint")):
+        j = h["jobs"].get(op, {})
+        accounted[point] = j.get("retries", 0) + j.get("failed", 0) + j.get("abandoned", 0)
+    for point, comp in (("band.build", "band_index"), ("band.lookup", "band_lookup")):
+        accounted[point] = deg.get(comp, 0)
+    for point, n in c["fired"].items():
+        if point == "checkpoint.leaf":
+            if not c["torn"]:
+                fail("torn checkpoint leaves went unnoticed by verification")
+        elif n > accounted.get(point, 0):
+            fail(f"{n} fault(s) at {point} but health() accounts for {accounted.get(point, 0)}")
+    if c["restored_step"] in c["torn"] or c["restored_live"] < 1:
+        fail(f"the restore walk-back landed on {c['restored_step']} (torn: {c['torn']})")
+    print(f"chaos: {seen['checked']} batches served, none raised, every (id, score) the "
+          f"exhaustive one (largest difference {seen['err']}); faults fired {c['fired']}, "
+          f"accounted in health() {accounted}")
+    chaos = {"fired": c["fired"], "hits": c["counters"]["hits"], "accounted": accounted,
+             "jobs": h["jobs"], "retries": h["retries"], "abandoned": h["abandoned"],
+             "quarantined": [q["op"] for q in h["quarantined"]], "degraded": deg,
+             "saves": c["saves"], "torn": c["torn"], "restored_step": c["restored_step"],
+             "restored_live": c["restored_live"], "checked_batches": seen["checked"],
+             "max_abs_err": seen["err"], "recall": out["recall"]}
+    del out
+    return {"background": background, "checkpoint": checkpoint, "chaos": chaos}
 
 
 def main(argv=None) -> int:
@@ -987,6 +1328,16 @@ def main(argv=None) -> int:
 
     # ------------------------------------------------------------ main path
     spec = dataclasses.replace(DATASETS["nytimes"], n_points=args.n_points)
+    share_corpora()
+    phase_s = {}
+    t_phase = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        phase_s[name] = time.perf_counter() - t_phase
+        print(f"phase {name}: {phase_s[name]:.1f}s")
+        t_phase = time.perf_counter()
+
     ops.reset_launches()
     out = serve(spec, queries=1024, topk=10, rho=0.05, batch=256,
                 ingest_batch=16384, backend="cuda", device=dev)
@@ -1016,6 +1367,7 @@ def main(argv=None) -> int:
     out["warm_queries_per_s"] = len(out["queries"]) / (time.perf_counter() - t0)
     if not torch.equal(warm_ids.cpu(), torch.from_numpy(out["ids"][-len(warm_ids):])):
         fail("a repeated query batch returned other ids")
+    assert_healthy(engine, "2")
 
     # the engine goes; phase 3 keeps its slab, cfg and map
     cfg, mapping = engine.cfg, engine.store.mapping
@@ -1024,19 +1376,24 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- mutable path
-    mut_rows, mut = mutable_phase(torch, dev, spec, out["n_bins"])
+    phase_done("2")
+    mut_rows, mut, sync_ref = mutable_phase(torch, dev, spec, out["n_bins"])
     torch.cuda.empty_cache()
+    phase_done("2b")
 
     # ------------------------------------------------------ banded prefilter
     band_row, pf = prefilter_phase(torch, dev, spec)
     torch.cuda.empty_cache()
+    phase_done("2c")
     pf["at_scale"] = prefilter_scale_phase(torch, dev, args.prefilter_docs)
     torch.cuda.empty_cache()
+    phase_done("2d")
 
     # ------------------------------------------------------------- hash mode
     hash_row, hm = hash_mode_phase(torch, dev, spec, out["corpus"], out["queries"],
                                    out["truth_ids"], out["n_bins"])
     torch.cuda.empty_cache()
+    phase_done("2e")
 
     # ------------------------------------------ kernels vs plain, main shapes
     n, w = cfg.n_bins, cfg.n_words
@@ -1152,12 +1509,32 @@ def main(argv=None) -> int:
     print(f"shapes: build {tuple(bins.shape)} -> W={w} (N={n}); score/topk "
           f"Q={qn} x C={cn} x W={w}, k=10; score and top-k bounds from the measured b1 rate "
           f"{rate:.6e}/s, their library_ms torch._int_mm (counts only)")
+    phase_done("3")
+
+    # ---------------------------------- operations plane (phase 2f, run last:
+    # torch.profiler loses kernels late in a long run, so phase 3 times first)
+    del corpus, fills, qs, qf, bins
+    torch.cuda.empty_cache()
+    threads_before = set(threading.enumerate())
+    ops_plane = ops_plane_phase(torch, dev, spec, out["n_bins"], sync_ref)
+    ops_plane["fault_free"] = "phases 2, 2b, 2c, 2d, 2e: no degraded component, no failed job"
+    ops_plane["left_behind"] = assert_nothing_left(threads_before)
+    # a reading, not a check: how many of 20 one-kernel calls the profiler
+    # records after phase 2f (run before phase 3, phase 2f was followed by
+    # a window that lost kernels; PERF.md section 7)
+    one = torch.ones((256, 184), dtype=torch.int32, device=dev)
+    probe, _, _ = profiler_window(torch, lambda: ops.rebucket(one, 5859, 2929), 20, 10)
+    ops_plane["left_behind"]["profiler_after"] = {"calls": 20, "kernels_recorded": len(probe)}
+    print(f"after phase 2f: {ops_plane['left_behind']}")
+    phase_done("2f")
+    ops_plane["phase_s"] = phase_s
     print(json.dumps({"serve": {k: out[k] for k in ("n_docs", "n_bins", "n_words", "build_s",
                                                   "docs_per_s", "serve_s", "queries_per_s",
                                                   "warm_queries_per_s", "recall")}}))
     print(json.dumps({"mutable": mut}))
     print(json.dumps({"prefilter": pf}))
     print(json.dumps({"hash_mode": hm}))
+    print(json.dumps({"ops_plane": ops_plane}))
 
     print(card)
     print(json.dumps({"kernels": rows}))

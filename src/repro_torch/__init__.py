@@ -4,8 +4,10 @@ The PyTorch counterpart of the JAX package ``repro``. It imports ``torch`` and
 ``numpy`` and nothing of ``repro``: the two packages meet only in the tests,
 which feed both the same numpy inputs and hold this one to the other's result.
 
-Layout (two slices of the JAX package so far: append-only serving, and the
-mutable arm with distillation and mixed-width queries):
+Layout (the slices of the JAX package so far: append-only serving; the
+mutable arm with distillation and mixed-width queries; the banded prefilter
+and hash mode; the operations plane of supervision, fault injection,
+background jobs and checkpoints):
 
 | piece | module | role |
 |---|---|---|
@@ -15,7 +17,10 @@ mutable arm with distillation and mixed-width queries):
 | counting sketch | core/counting.py | per-bin occupancy counters of the mutable head |
 | corpora | data/synthetic.py | the numpy generator, same seed -> same rows |
 | kernels | hopper/ | CUDA kernels for build, score, streaming top-k, occupancy count and width fold, with plain twins |
-| engine | engine/ | backends, planner, append-only and segmented stores, SketchEngine |
+| engine | engine/ | backends, planner, append-only and segmented stores, banded prefilter, job supervisor, SketchEngine |
+| checkpoints | checkpoint/manager.py | atomic, async, CRC-verified checkpoints on the reference's layout |
+| fault injection | faults.py | seeded fault plans over named injection points |
+| time and metrics | obs/clock.py, obs/metrics.py | the injectable clock; counters, gauges, histograms |
 | ground truth | obs/probe.py | exact Jaccard top-k |
 | driver | launch/serve.py | the paper's ranking experiment as a service, append-only or mutable |
 | state from the reference | convert.py | Ψ tables, packed words and whole stores of the JAX package |

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .core import packed as pk
+from .core import counting, packed as pk
 from .core.binsketch import BinSketchConfig
 from .engine.banding import BandPolicy
 from .engine.segments import _HEAD, SealedSegment, SegmentedStore
@@ -76,7 +76,7 @@ def segmented_store_from_reference(tree: dict, aux: dict, device="cuda") -> Segm
     """A reference ``SegmentedStore.checkpoint_tree()`` as the port's store.
 
     ``tree`` is the pytree with every leaf already a numpy array, ``aux`` the
-    metadata dict. Head counters (u16 there) become int32, packed words keep
+    metadata dict. Head counters keep their u16 bits (int16 here), packed words keep
     their bits, distilled segments keep their width (``sealed_n_bins``), and
     the location map and live count are rebuilt from the tombstone bitmaps,
     as the reference's ``restore`` does. A band policy crosses too, and each
@@ -97,7 +97,7 @@ def segmented_store_from_reference(tree: dict, aux: dict, device="cuda") -> Segm
         return torch.from_numpy(np.asarray(a, dtype=np.int32).copy()).to(dev)
 
     ht, h = tree["head"], store.head
-    h.counters[:hr] = ints(ht["counters"]).reshape(hr, cfg.n_bins)
+    h.counters[:hr] = counting.to_stored(ints(ht["counters"]).reshape(hr, cfg.n_bins))
     h.packed[:hr] = packed_from_reference(ht["packed"], dev).reshape(hr, cfg.n_words)
     h.fills[:hr] = ints(ht["fills"])
     h.sat_dev[:hr] = torch.from_numpy(np.asarray(ht["saturated"], bool).copy()).to(dev)

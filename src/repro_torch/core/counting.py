@@ -7,8 +7,11 @@ increments a bin, retraction decrements it, and the binary sketch every
 estimator and kernel consumes is ``c_s > 0`` at any moment — bit for bit the
 paper's sketch. The same algebra as ``repro.core.counting``.
 
-**Counters are int32 clamped at** :data:`COUNTER_MAX` (the reference keeps
-u16; PyTorch has no unsigned 16-bit arithmetic). Arithmetic saturates: an
+**Counters are computed in int32 and stored in 16 bits**, clamped at
+:data:`COUNTER_MAX`, the reference's u16 range. PyTorch's ``uint16`` lacks
+index assignment, comparisons and ``clamp`` on the CPU, so the stored dtype is
+:data:`COUNTER_DTYPE` (int16) holding the u16 bit patterns: :func:`to_stored`
+writes them, :func:`widen` reads them back as int32. Arithmetic saturates: an
 occupancy past the clamp loses its true value for good, so the mutable head
 (:mod:`repro_torch.engine.segments`) flags the row and refuses retraction on
 it. The binary sketch is never wrong under saturation (``clamped > 0`` iff
@@ -25,6 +28,7 @@ import torch
 from . import binsketch, packed as pk
 
 __all__ = [
+    "COUNTER_DTYPE",
     "COUNTER_MAX",
     "count_indices_dense",
     "counters_to_packed",
@@ -32,9 +36,25 @@ __all__ = [
     "dedup_padded",
     "fold_counters",
     "packed_to_counters",
+    "to_stored",
+    "widen",
 ]
 
 COUNTER_MAX = 65535  # saturating clamp, the reference's u16 range
+COUNTER_DTYPE = torch.int16  # stored counters: the reference's u16 bits
+
+
+def to_stored(counts: torch.Tensor) -> torch.Tensor:
+    """int32 occupancy already clamped to ``[0, 65535]`` -> int16 holding the
+    same 16 bits. Values from 32768 up are shifted down by 2^16 before the
+    cast, so no out-of-range conversion is left to the platform."""
+    return torch.where(counts >= 32768, counts - 65536, counts).to(COUNTER_DTYPE)
+
+
+def widen(stored: torch.Tensor) -> torch.Tensor:
+    """Stored int16 counters -> their u16 values as int32 (a plain cast would
+    read 65535 as -1)."""
+    return stored.to(torch.int32) & 0xFFFF
 
 
 def dedup_padded(idx: torch.Tensor) -> torch.Tensor:

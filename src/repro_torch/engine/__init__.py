@@ -3,11 +3,12 @@
 | piece | file | role |
 |---|---|---|
 | SketchStore | store.py | packed corpus, incremental ingest, fill cache |
-| SegmentedStore | segments.py | counting head, sealed segments, tombstones, compaction, distillation |
+| SegmentedStore | segments.py | counting head, sealed segments, tombstones, compaction and distillation (synchronous or background), checkpoints |
+| JobSupervisor | supervision.py | retries, watchdog, quarantine, degraded modes, health() of background jobs |
 | BandPolicy, BandIndex | banding.py | the banded LSH prefilter's knobs and per-segment bucket index |
 | Backend registry | backends.py | reference / cuda behind one name |
 | QueryPlanner | planner.py | ragged batches -> bounded set of padded shapes |
-| SketchEngine | engine.py | build + add + lifecycle verbs + score_all + mixed-width, prefiltered query |
+| SketchEngine | engine.py | build + add + lifecycle verbs + score_all + mixed-width, prefiltered query + health() |
 """
 
 from .backends import Backend, CudaBackend, ReferenceBackend, available_backends, get_backend
@@ -16,13 +17,16 @@ from .engine import SketchEngine, merge_segment_topk
 from .planner import QueryChunk, QueryPlanner
 from .segments import DistillPolicy, SealedSegment, SegmentedStore
 from .store import SegmentView, SketchStore
+from .supervision import DegradedMode, JobSupervisor, SupervisedJob, SupervisionPolicy
 
 __all__ = [
     "Backend",
     "BandIndex",
     "BandPolicy",
     "CudaBackend",
+    "DegradedMode",
     "DistillPolicy",
+    "JobSupervisor",
     "QueryChunk",
     "QueryPlanner",
     "ReferenceBackend",
@@ -31,6 +35,8 @@ __all__ = [
     "SegmentedStore",
     "SketchEngine",
     "SketchStore",
+    "SupervisedJob",
+    "SupervisionPolicy",
     "available_backends",
     "get_backend",
     "merge_segment_topk",

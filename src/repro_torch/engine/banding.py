@@ -30,6 +30,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from .. import faults
 from ..core import packed as pk
 
 __all__ = ["BandIndex", "BandPolicy"]
@@ -93,7 +94,8 @@ class BandIndex:
     def build(cls, keys: np.ndarray) -> "BandIndex":
         """``keys (n_rows, n_bands)`` uint32 (or int32 holding the same bits,
         as ``Backend.band_hash`` returns them: the cast keeps the bits) -> the
-        index."""
+        index. Fault point ``band.build``."""
+        faults.inject("band.build")
         keys = np.ascontiguousarray(keys, dtype=np.uint32)
         n_rows, n_bands = keys.shape
         orders = np.empty((n_bands, n_rows), np.int32)
@@ -109,8 +111,9 @@ class BandIndex:
 
     @classmethod
     def build_from_packed(cls, sketches: np.ndarray, n_bands: int) -> "BandIndex":
-        """Host build straight from a packed (n, W) uint32 slab (the
-        distillation fold's output, which is host numpy already)."""
+        """Host build straight from a packed (n, W) uint32 host slab, keys
+        from the plain host hash (the store hashes its slabs on their device
+        and calls :meth:`build`)."""
         return cls.build(pk.band_hash_host(sketches, n_bands))
 
     def stats(self) -> dict:
@@ -126,8 +129,10 @@ class BandIndex:
         ``qkeys (nq, n_bands)`` uint32 -> sorted unique rows (int64)
         colliding with any query on any band. Ascending order keeps a
         gathered slab in the segment's id order, so ``Backend.topk``'s
-        positional tie-break stays the id tie-break.
+        positional tie-break stays the id tie-break. Fault point
+        ``band.lookup``.
         """
+        faults.inject("band.lookup")
         qkeys = np.asarray(qkeys, dtype=np.uint32)
         if qkeys.ndim != 2 or qkeys.shape[1] != self.n_bands:
             raise ValueError(f"qkeys must be (nq, {self.n_bands}), got {qkeys.shape}")

@@ -19,10 +19,19 @@ a smaller width N', and the chunk's query sketches are folded to N' once per
 distinct width (``Backend.rebucket``) before that view is scored. With a
 :class:`~repro_torch.engine.banding.BandPolicy` on a mutable store, indexed
 sealed segments score only the rows that share a band key with a query of
-the chunk (the banded prefilter, ``query(prefilter=...)``). Placement,
-background jobs, supervision and telemetry of the JAX engine come in later
-slices; without a supervisor, a failure in the prefilter propagates instead
-of degrading to the exhaustive scan.
+the chunk (the banded prefilter, ``query(prefilter=...)``).
+
+Maintenance runs under a :class:`~repro_torch.engine.supervision.JobSupervisor`
+(the mutable store's own, or one the engine keeps): ``compact`` and
+``distill`` run synchronously or as background jobs, and ``query`` swaps in a
+finished job before it scores. The prefilter is an accelerator, as in the
+reference: a failed bucket lookup, a failed index build or a failed
+prefiltered chunk degrades that segment or chunk to the exhaustive scan (the
+same answers, more rows), and each fallback, the escape hatch included, is
+recorded in :meth:`SketchEngine.health`. A kernel that fails to build or
+launch, a kernel wrapper that refuses its input, or an error of the card is
+never such a fallback: it propagates (``hopper.build.is_device_fault``).
+Placement and telemetry of the JAX engine come in later slices.
 """
 
 from __future__ import annotations
@@ -35,12 +44,14 @@ import numpy as np
 import torch
 
 from ..core import binsketch
+from ..hopper.build import is_device_fault
 from . import backends as backends_mod
 from .backends import Backend
 from .banding import BandPolicy
 from .planner import QueryPlanner
 from .segments import DistillPolicy, SealedSegment, SegmentedStore
 from .store import SegmentView, SketchStore, as_index_tensor
+from .supervision import JobSupervisor
 
 __all__ = ["SketchEngine", "merge_segment_topk"]
 
@@ -76,6 +87,10 @@ class SketchEngine:
     # escape hatch, or unindexed); None until a prefiltered query runs
     last_prefilter_stats: Optional[dict] = dataclasses.field(default=None, init=False,
                                                              repr=False)
+    # the supervisor of an engine over an append-only store, which has no
+    # background jobs but still records degraded modes (see :attr:`supervisor`)
+    _own_supervisor: Optional[JobSupervisor] = dataclasses.field(default=None, init=False,
+                                                                 repr=False)
 
     # ------------------------------------------------------------ construct
     @classmethod
@@ -83,15 +98,18 @@ class SketchEngine:
               corpus_idx=None, *, backend=None, measure: str = "jaccard",
               planner: Optional[QueryPlanner] = None, capacity: int = 1024,
               batch: int = 4096, mutable: bool = False, seal_rows: Optional[int] = None,
-              ttl: Optional[float] = None,
-              band_policy: Optional[BandPolicy] = None) -> "SketchEngine":
+              ttl: Optional[float] = None, band_policy: Optional[BandPolicy] = None,
+              supervisor: Optional[JobSupervisor] = None) -> "SketchEngine":
         """Create an engine on ``mapping``'s device; ``corpus_idx`` (C, P) is
         ingested if given, otherwise the engine starts empty and is fed via
         :meth:`add`. ``mutable=True`` builds over a :class:`SegmentedStore`;
         ``seal_rows`` auto-seals its head at that many rows, ``ttl`` arms
         lazy expiry for queries that carry a ``now``, and ``band_policy``
         arms the banded prefilter: sealed segments grow bucket indexes and
-        queries scan only colliding buckets."""
+        queries scan only colliding buckets. ``supervisor`` governs
+        background jobs and degraded modes (default: a fresh
+        :class:`JobSupervisor` on the real clock; give it a ``ManualClock``
+        to drive backoff, deadlines and probation by hand)."""
         be = backends_mod.get_backend(backend)
         if (seal_rows is not None or ttl is not None
                 or band_policy is not None) and not mutable:
@@ -99,7 +117,8 @@ class SketchEngine:
                              "append-only SketchStore has no head to seal, no clock, "
                              "no sealed segments to band)")
         if mutable:
-            kw = {"seal_rows": seal_rows, "ttl": ttl, "band_policy": band_policy}
+            kw = {"seal_rows": seal_rows, "ttl": ttl, "band_policy": band_policy,
+                  "supervisor": supervisor}
             if corpus_idx is not None:
                 store = SegmentedStore.from_indices(cfg, mapping, corpus_idx, backend=be,
                                                     batch=batch, **kw)
@@ -109,7 +128,30 @@ class SketchEngine:
             store = SketchStore.from_indices(cfg, mapping, corpus_idx, backend=be, batch=batch)
         else:
             store = SketchStore.create(cfg, mapping, capacity=capacity)
-        return cls(store, be, measure, planner or QueryPlanner())
+        eng = cls(store, be, measure, planner or QueryPlanner())
+        if supervisor is not None and not mutable:
+            eng._own_supervisor = supervisor
+        return eng
+
+    # -------------------------------------------------------- observability
+    @property
+    def supervisor(self) -> JobSupervisor:
+        """The supervisor of this engine's background jobs and degraded
+        modes: the mutable store's own, or one the engine keeps for an
+        append-only store."""
+        sup = getattr(self.store, "supervisor", None)
+        if sup is not None:
+            return sup
+        if self._own_supervisor is None:
+            self._own_supervisor = JobSupervisor()
+        return self._own_supervisor
+
+    def health(self) -> dict:
+        """The supervisor's JSON-safe snapshot: job counters per operation
+        (launched, succeeded, failed, retries, abandoned, refused),
+        quarantines, degraded query-path components with their reasons, the
+        last error and job latencies."""
+        return self.supervisor.health()
 
     @property
     def cfg(self) -> binsketch.BinSketchConfig:
@@ -156,26 +198,54 @@ class SketchEngine:
         index, if the policy wants one, hashed through this backend)."""
         return self._mutable_store().seal(backend=self.backend)
 
-    def compact(self):
-        """Merge sealed segments per width, dropping tombstones (fresh band
-        indexes hashed through this backend); returns stats."""
-        return self._mutable_store().compact(backend=self.backend)
+    def compact(self, *, background: bool = False, _hold=None):
+        """Merge sealed segments per width, dropping tombstones.
+
+        ``background=False``: synchronous, on the device; returns stats.
+        ``background=True``: start the merge as a supervised background job
+        and return None; queries keep serving the old segments and swap the
+        result in the moment it is ready (or call :meth:`wait_compaction` for
+        the stats). Either way, fresh band indexes are hashed through this
+        backend."""
+        store = self._mutable_store()
+        if not background:
+            return store.compact(backend=self.backend)
+        store.compact_async(backend=self.backend, _hold=_hold)
+        return None
+
+    def poll_compaction(self) -> bool:
+        """Non-blocking: swap in a finished background job."""
+        return self._mutable_store().poll_compaction()
+
+    def wait_compaction(self):
+        """Drive the background job to its end and swap it in; its stats."""
+        return self._mutable_store().wait_compaction()
 
     def expire(self, ttl: float, now: float) -> int:
         """Tombstone docs with ``born + ttl <= now``."""
         return self._mutable_store().expire(ttl, now)
 
     def distill(self, policy: Optional[DistillPolicy] = None, *, widths=None,
-                now: float = 0.0):
+                now: float = 0.0, background: bool = False, _hold=None):
         """Re-sketch policy-eligible sealed segments to their next smaller
-        width tier; returns the swap's stats, or None when nothing was
-        eligible. ``widths`` is shorthand for an unconditional policy over
-        those tiers. Queries afterwards are served mixed-width."""
+        width tier, folded on the host by a supervised background job (band
+        indexes hashed through this backend in the swap). ``widths`` is
+        shorthand for an unconditional policy over those tiers.
+
+        ``background=False`` (this package's default; the reference defaults
+        to True) waits for the job and returns the swap's stats, or None when
+        nothing was eligible or the job failed. ``background=True`` returns
+        whether a job started; queries swap it in when it is ready. Queries
+        afterwards are served mixed-width."""
+        store = self._mutable_store()
         if policy is None:
             if widths is None:
                 raise ValueError("pass a DistillPolicy or widths=(N', ...)")
             policy = DistillPolicy(widths=tuple(widths))
-        return self._mutable_store().distill(policy, now=now)
+        started = store.distill_async(policy, now=now, backend=self.backend, _hold=_hold)
+        if not background:
+            return store.wait_compaction() if started else None
+        return started
 
     # ----------------------------------------------------------------- query
     def _padded_query_sketches(self, query_idx: torch.Tensor, padded: int) -> torch.Tensor:
@@ -266,14 +336,28 @@ class SketchEngine:
         ``max_candidate_frac`` of the segment, and the exhaustive scan is the
         better deal). Dead and TTL-expired rows stay in their buckets and are
         dropped here against the current host bitmaps, the predicate the
-        exhaustive views apply."""
+        exhaustive views apply. A failed lookup returns None too, recorded
+        as ``band_lookup``; the hatch is recorded as ``prefilter_hatch``."""
         store: SegmentedStore = self.store
-        cand = seg.band_index.candidates(qkeys)
+        try:
+            cand = seg.band_index.candidates(qkeys)
+        except Exception as e:
+            # a broken bucket lookup must not break the query: this segment
+            # serves exhaustively and the degradation lands in health()
+            self.supervisor.record_degraded("band_lookup", f"{e}")
+            return None
         if len(cand):
             cand = cand[seg.valid[cand]]
             if store.ttl is not None and now is not None:
                 cand = cand[seg.born[cand] + store.ttl > now]
         if len(cand) > store.band_policy.max_candidate_frac * seg.n_rows:
+            # the escape hatch is a degraded mode too: the same fallback for
+            # another cause (selectivity), recorded so that a query pattern
+            # defeating the prefilter shows in health()
+            self.supervisor.record_degraded(
+                "prefilter_hatch",
+                f"candidate union {len(cand)}/{seg.n_rows} rows exceeded "
+                f"max_candidate_frac={store.band_policy.max_candidate_frac}")
             return None
         return cand
 
@@ -385,6 +469,8 @@ class SketchEngine:
         if n_q == 0:
             return (torch.zeros((0, k), dtype=torch.float32, device=self.device),
                     torch.full((0, k), -1, dtype=torch.int32, device=self.device))
+        if isinstance(self.store, SegmentedStore):
+            self.store.poll_compaction()  # adopt a finished background job
         banded = self._resolve_prefilter(prefilter)
         views = None if banded else self.store.segment_views(now=now)
         stats = self._fresh_prefilter_stats() if banded else None
@@ -395,8 +481,20 @@ class SketchEngine:
             if banded:
                 # per-chunk caches: the folded and hashed query blocks belong
                 # to this chunk's rows
-                sc, ix = self._prefiltered_topk(qs, chunk.rows, k, now=now, width_cache={},
-                                                qkeys_cache={}, stats=stats)
+                try:
+                    sc, ix = self._prefiltered_topk(qs, chunk.rows, k, now=now,
+                                                    width_cache={}, qkeys_cache={},
+                                                    stats=stats)
+                except Exception as e:
+                    # the prefilter is an accelerator: a failure degrades this
+                    # chunk to the exhaustive scan (same answers, more rows),
+                    # unless a kernel or its wrapper raised, or the card
+                    if is_device_fault(e):
+                        raise
+                    self.supervisor.record_degraded("prefilter", f"{e}")
+                    if views is None:
+                        views = self.store.segment_views(now=now)
+                    sc, ix = self._views_topk(qs, views, k)
             else:
                 sc, ix = self._views_topk(qs, views, k)
             out_s.append(sc[: chunk.rows])

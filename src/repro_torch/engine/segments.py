@@ -7,7 +7,8 @@ log-structured layout of the reference:
 
   * a **mutable head** backed by the counting BinSketch
     (:mod:`repro_torch.core.counting`): per-doc, per-bin occupancy counters
-    over the same Ψ map, int32 clamped at ``COUNTER_MAX``. The binary sketch
+    over the same Ψ map, stored in 16 bits and clamped at ``COUNTER_MAX`` as
+    the reference's u16. The binary sketch
     every estimator and kernel reads is ``counters > 0``, so insert is an
     increment, retraction a decrement and replacement an overwrite, in place;
   * **sealed segments**, packed-only (n, W) slabs plus their fill cache.
@@ -15,17 +16,22 @@ log-structured layout of the reference:
     reaches ``Backend.topk`` as ``corpus_valid``; no data moves;
   * **compaction**, which merges sealed segments (per sketch width),
     dropping tombstoned rows — the only rewrite of sealed bytes, never a
-    re-sketch;
+    re-sketch. :meth:`SegmentedStore.compact` is the synchronous pass on the
+    device; :meth:`SegmentedStore.compact_async` runs the merge as a
+    supervised background job (snapshot to the host, merge off-thread in
+    numpy, swap on the caller's thread with tombstone reconciliation);
   * **TTL expiry** over per-doc birth stamps: eagerly by :meth:`expire`,
     lazily at query time when the store has a ``ttl`` and the query a ``now``;
-  * **distillation** (:meth:`SegmentedStore.distill`): a sealed segment
-    re-sketched from width N to a smaller N' by OR-folding bin ``j`` into
-    ``j mod N'`` over the packed slab alone, as a :class:`DistillPolicy`
-    decides. Serving becomes mixed-width: each view carries its ``n_bins``;
+  * **distillation** (:meth:`SegmentedStore.distill_async`): a sealed
+    segment re-sketched from width N to a smaller N' by OR-folding bin ``j``
+    into ``j mod N'`` over the packed slab alone, as a :class:`DistillPolicy`
+    decides, on the same background pattern. Serving becomes mixed-width:
+    each view carries its ``n_bins``;
   * the **banded prefilter** (:mod:`.banding`): with a ``band_policy``, every
     sealed segment of at least ``min_rows`` rows gets a :class:`BandIndex`
     over its slab when it is made (seal, ``seal_sketches``, compaction,
-    distillation), and the engine's queries scan only colliding buckets.
+    distillation), its keys hashed on the store's device through the
+    engine's backend, and the engine's queries scan only colliding buckets.
 
 Invariants, as in the reference: ``_loc[gid] == (segment, row)`` for exactly
 the live docs; a row is retrievable iff ``valid and (ttl is None or now is
@@ -36,9 +42,14 @@ store answers queries exactly as a fresh build over its survivors.
 
 Counters, packed rows, fills and the saturation flags live on the mapping's
 device; per-row bookkeeping (ids, tombstones, birth stamps, exactness) is
-host numpy. Distillation runs synchronously here: its fold is pure host
-numpy over a snapshot, applied through the same reconciling swap a
-background job would use.
+host numpy. Background jobs run under the store's
+:class:`~repro_torch.engine.supervision.JobSupervisor`, so a failed merge or
+fold is retried or dropped and never reaches a query; their workers touch
+only host copies (``.cpu()`` before the job, ``.to(device)`` at the swap), so
+no CUDA work runs off the caller's thread. :meth:`SegmentedStore.save` and
+:meth:`SegmentedStore.restore` go through
+:class:`~repro_torch.checkpoint.manager.CheckpointManager` on the
+reference's on-disk layout.
 """
 
 from __future__ import annotations
@@ -49,10 +60,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import faults, resolve_device
 from ..core import binsketch, counting
 from ..core import packed as pk
+from ..hopper.build import is_device_fault
+from ..obs import metrics as obs_metrics
 from .banding import BandIndex, BandPolicy
 from .store import SegmentView, _grow, as_index_tensor
+from .supervision import JobSupervisor, SupervisedJob
 
 __all__ = ["DistillPolicy", "SealedSegment", "SegmentedStore"]
 
@@ -69,6 +84,17 @@ def _grow_host(arr: np.ndarray, new_capacity: int) -> np.ndarray:
     out = np.zeros((new_capacity,) + arr.shape[1:], arr.dtype)
     out[: arr.shape[0]] = arr
     return out
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's own host copy as numpy (never a view of a CPU tensor that
+    may change while a worker or a checkpoint writer reads it)."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def _host_words(t: torch.Tensor) -> np.ndarray:
+    """Packed int32 words -> a host uint32 copy with the same bits."""
+    return _host(t).view(np.uint32)
 
 
 def _fold_packed_host(sk: np.ndarray, n_bins: int, n_bins_new: int):
@@ -227,8 +253,11 @@ class SealedSegment:
 
 @dataclasses.dataclass
 class _Head:
-    """Mutable counting segment: int32 occupancy counters plus the packed rows
-    and fills derived from them.
+    """Mutable counting segment: 16-bit occupancy counters plus the packed
+    rows and fills derived from them. The counters hold the reference's u16
+    bits in int16 (``counting.to_stored``) and are widened to int32 on every
+    read (``counting.widen``), so they take 2 bytes a bin as in the
+    reference.
 
     ``exact`` marks rows whose counters carry true element multiplicity
     (built from indices); rows re-entered from packed form are occupancy-1
@@ -238,7 +267,7 @@ class _Head:
     refused.
     """
 
-    counters: torch.Tensor  # (cap, N) int32
+    counters: torch.Tensor  # (cap, N) int16 holding u16 bits
     packed: torch.Tensor  # (cap, W) int32
     fills: torch.Tensor  # (cap,) int32
     ids: np.ndarray  # (cap,) int64
@@ -259,7 +288,7 @@ class _Head:
     def create(cls, n_bins: int, n_words: int, capacity: int, device) -> "_Head":
         capacity = max(int(capacity), 1)
         return cls(
-            torch.zeros((capacity, n_bins), dtype=torch.int32, device=device),
+            torch.zeros((capacity, n_bins), dtype=counting.COUNTER_DTYPE, device=device),
             torch.zeros((capacity, n_words), dtype=torch.int32, device=device),
             torch.zeros((capacity,), dtype=torch.int32, device=device),
             np.zeros((capacity,), np.int64),
@@ -297,7 +326,7 @@ class _Head:
         limit = counting.COUNTER_MAX
         sat = (counts > limit).any(dim=-1)
         clamped = counts.clamp(0, limit)
-        self.counters[rows] = clamped
+        self.counters[rows] = counting.to_stored(clamped)
         self.packed[rows] = counting.counters_to_packed(clamped)
         self.fills[rows] = counting.counter_fills(clamped)
         return sat
@@ -334,7 +363,7 @@ class _Head:
         """Saturating ``counters[rows] += deltas`` (unique rows). Saturation
         is sticky: only an overwrite clears the flag."""
         r = self._rows_dev(rows)
-        sat = self._write_rows(r, self.counters[r] + deltas)
+        sat = self._write_rows(r, counting.widen(self.counters[r]) + deltas)
         self.sat_dev[r] = self.sat_dev[r] | sat
 
     def set_counts(self, rows: np.ndarray, counts: torch.Tensor) -> None:
@@ -367,13 +396,25 @@ class _Head:
 
 
 @dataclasses.dataclass
+class _CompactionJob:
+    """A pending background job: the supervised worker plus the sealed
+    segments it snapshot, which its swap replaces."""
+
+    job: SupervisedJob
+    segments: List[SealedSegment]
+    backend: object = None  # hashes the band keys the swap still needs
+
+
+@dataclasses.dataclass
 class SegmentedStore:
     """Mutable, segmented counterpart of :class:`SketchStore`.
 
     The same ``add`` / ``add_sketches`` / ``merge`` / ``merge_rows`` surface,
     plus ``delete`` / ``update`` / ``retract_rows`` / ``seal`` / ``compact``
-    / ``expire`` / ``distill``. Doc ids are global, assigned at insert, and
-    never reused.
+    / ``expire``, the background ``compact_async`` / ``distill_async`` with
+    ``poll_compaction`` / ``wait_compaction`` / ``abandon_compaction``, and
+    ``save`` / ``restore``. Doc ids are global, assigned at insert, and never
+    reused.
     """
 
     cfg: binsketch.BinSketchConfig
@@ -388,24 +429,30 @@ class SegmentedStore:
     band_policy: Optional[BandPolicy] = None
     _loc: Dict[int, Tuple[int, int]] = dataclasses.field(default_factory=dict)
     _n_live: int = 0
+    _compaction: Optional[_CompactionJob] = dataclasses.field(default=None, repr=False)
+    # every background job goes through it: failures are retried or
+    # quarantined here and never raised into a query
+    supervisor: JobSupervisor = dataclasses.field(default_factory=JobSupervisor, repr=False)
 
     # ------------------------------------------------------------ construct
     @classmethod
     def create(cls, cfg: binsketch.BinSketchConfig, mapping: torch.Tensor,
                capacity: int = 1024, seal_rows: Optional[int] = None,
-               ttl: Optional[float] = None,
-               band_policy: Optional[BandPolicy] = None) -> "SegmentedStore":
+               ttl: Optional[float] = None, band_policy: Optional[BandPolicy] = None,
+               supervisor: Optional[JobSupervisor] = None) -> "SegmentedStore":
         head = _Head.create(cfg.n_bins, cfg.n_words, capacity, mapping.device)
         return cls(cfg, mapping, [], head, seal_rows=seal_rows, ttl=ttl,
-                   band_policy=band_policy)
+                   band_policy=band_policy, supervisor=supervisor or JobSupervisor())
 
     @classmethod
     def from_indices(cls, cfg: binsketch.BinSketchConfig, mapping: torch.Tensor,
                      corpus_idx, *, backend=None, batch: int = 4096, now: float = 0.0,
                      seal_rows: Optional[int] = None, ttl: Optional[float] = None,
-                     band_policy: Optional[BandPolicy] = None) -> "SegmentedStore":
+                     band_policy: Optional[BandPolicy] = None,
+                     supervisor: Optional[JobSupervisor] = None) -> "SegmentedStore":
         store = cls.create(cfg, mapping, capacity=max(int(corpus_idx.shape[0]), 1),
-                           seal_rows=seal_rows, ttl=ttl, band_policy=band_policy)
+                           seal_rows=seal_rows, ttl=ttl, band_policy=band_policy,
+                           supervisor=supervisor)
         store.add(corpus_idx, backend=backend, batch=batch, now=now)
         return store
 
@@ -720,20 +767,35 @@ class SegmentedStore:
         rows = np.nonzero(seg.valid)[0]
         self._loc.update(zip(seg.ids[rows].tolist(), ((seg_i, int(r)) for r in rows)))
 
+    def _band_keys(self, sketches: torch.Tensor, backend=None) -> np.ndarray:
+        """(rows, nb_eff) host band keys of a slab on the store's device, as
+        int32 holding the uint32 bits: ``backend.band_hash`` when a backend is
+        given (the engine passes its own, so on the ``cuda`` backend the
+        kernel hashes), else the plain ``pk.band_hash``, as the reference's
+        oracle; bit-identical either way."""
+        hash_fn = backend.band_hash if backend is not None else pk.band_hash
+        return hash_fn(sketches, self.band_policy.n_bands).cpu().numpy()
+
     def _band_index_for(self, sketches: torch.Tensor, n_rows: int,
                         backend=None) -> Optional[BandIndex]:
         """A :class:`BandIndex` over a freshly made slab when the band policy
-        wants one, else None. The keys come from ``backend.band_hash`` when a
-        backend is given (the engine passes its own, so on the ``cuda``
-        backend the kernel hashes) and from the plain ``pk.band_hash``
-        otherwise, as the reference's oracle: bit-identical either way. A
-        failure propagates."""
+        wants one, else None; the keys from :meth:`_band_keys`.
+
+        The index is an accelerator, not a dependency: a failed bucket build
+        (host numpy) leaves the segment unindexed (it serves through the
+        exhaustive scan) and is recorded as the ``band_index`` degraded mode,
+        as in the reference. The hash is not inside that catch: a kernel that
+        refuses its input, fails to build or launch, or an error of the card
+        propagates."""
         bp = self.band_policy
         if bp is None or not bp.wants_index(n_rows):
             return None
-        hash_fn = backend.band_hash if backend is not None else pk.band_hash
-        keys = hash_fn(sketches, bp.n_bands)
-        return BandIndex.build(keys.cpu().numpy())
+        keys = self._band_keys(sketches, backend)
+        try:
+            return BandIndex.build(keys)
+        except Exception as e:
+            self.supervisor.record_degraded("band_index", f"build failed: {e}")
+            return None
 
     def seal(self, *, backend=None) -> Optional[SealedSegment]:
         """Freeze the head into a sealed segment (its tombstoned rows are
@@ -751,13 +813,15 @@ class SegmentedStore:
                                 band_index=self._band_index_for(sk, len(ids), backend))
             self.sealed.append(seg)
             self._index_segment(len(self.sealed) - 1)
+            obs_metrics.inc("lifecycle.seal.runs")
+            obs_metrics.inc("lifecycle.seal.rows", seg.n_rows)
         self.head = _Head.create(self.cfg.n_bins, self.cfg.n_words, h.capacity, self.device)
         return seg
 
     def seal_sketches(self, sketches: torch.Tensor, *, now: float = 0.0,
                       backend=None) -> range:
         """Bulk-ingest pre-packed int32 rows straight into a sealed segment,
-        bypassing the counting head (whose counters cost ``4*N`` bytes a
+        bypassing the counting head (whose counters cost ``2*N`` bytes a
         doc); returns the fresh ids, assigned in row order. The band index,
         policy permitting, is built here as at a seal."""
         b = int(sketches.shape[0])
@@ -776,6 +840,8 @@ class SegmentedStore:
             band_index=self._band_index_for(sketches, b, backend)))
         self._index_segment(len(self.sealed) - 1)
         self._n_live += b
+        obs_metrics.inc("lifecycle.seal.runs")
+        obs_metrics.inc("lifecycle.seal.rows", b)
         return range(int(ids[0]), int(ids[-1]) + 1)
 
     def _widths_present(self) -> List[Optional[int]]:
@@ -788,7 +854,10 @@ class SegmentedStore:
         """Merge sealed segments per sketch width, dropping tombstoned rows;
         rows come out sorted by global id, one segment per width, each with a
         fresh band index, hashed through ``backend``, when the policy wants
-        one. The head is untouched (seal first for a full compaction)."""
+        one. The head is untouched (seal first for a full compaction).
+        Synchronous, on the device; :meth:`compact_async` is the background
+        variant."""
+        self.wait_compaction()  # never two compactions over the same slabs
         stats = {"segments_in": len(self.sealed),
                  "rows_in": sum(s.n_rows for s in self.sealed), "rows_out": 0, "groups": 0}
         if not self.sealed:
@@ -809,26 +878,140 @@ class SegmentedStore:
         for seg_i in range(len(self.sealed)):
             self._index_segment(seg_i)
             stats["rows_out"] += self.sealed[seg_i].n_rows
+        obs_metrics.inc("lifecycle.compact.runs")
+        obs_metrics.inc("lifecycle.compact.rows_in", stats["rows_in"])
+        obs_metrics.inc("lifecycle.compact.rows_out", stats["rows_out"])
         return stats
 
-    def distill(self, policy: DistillPolicy, *, now: float = 0.0) -> Optional[Dict[str, int]]:
-        """Re-sketch each policy-eligible sealed segment to its next smaller
-        width tier and swap it in; returns the swap's stats, or None when no
-        segment is eligible.
+    # ------------------------------------------------ background maintenance
+    def compact_async(self, groups: Optional[Sequence[Sequence[int]]] = None, *,
+                      backend=None, _hold=None) -> bool:
+        """Start a compaction on a supervised worker thread; serving goes on.
 
-        Each segment folds on its own (no cross-segment merge): dead rows
-        are dropped, the live rows OR-folded N -> N' on the host
-        (:func:`_fold_packed_host`), fills re-counted, and, with a band
-        policy, a fresh index built on the host from the folded words (the
-        base-width buckets never serve the narrower rows). The result goes in
-        through :meth:`_swap`, which reconciles against the source
-        tombstones (the uint32 words the fold returns are the same bits as
-        the device's int32 ones).
-        """
+          1. **snapshot to the host**: the grouped segments' words, fills and
+             row metadata are copied to host memory on the caller's thread
+             (the only part it waits for); when the band policy wants an
+             index over the merged rows, each segment's band keys are hashed
+             there on the device through ``backend`` (:meth:`_band_keys`: on
+             the ``cuda`` backend the kernel) and copied with them;
+          2. **merge off-thread**: live rows of each group merge-sort by
+             global id in numpy against the snapshot, and the keys, permuted
+             the same way, are bucketed into the band index there; the worker
+             touches no live state and no device;
+          3. **swap on the caller's thread**: :meth:`poll_compaction` (the
+             query path calls it) or :meth:`wait_compaction` uploads the
+             result, reconciles tombstones that landed during the merge
+             (:meth:`_swap_compaction`) and replaces the group's segments.
+
+        ``groups`` partitions sealed-segment indexes into merge groups
+        (default: one global group); groups split by sketch width, and a
+        group of one tombstone-free segment is skipped. Returns False when
+        there is nothing to do or the pair is quarantined. ``_hold`` (a test
+        seam) is an event the worker waits on before returning, pinning the
+        job in the running state."""
+        self.wait_compaction()
+        if groups is None:
+            groups = [list(range(len(self.sealed)))]
+        groups = [[int(i) for i in g] for g in groups]
+        seen: set = set()
+        for g in groups:
+            for i in g:
+                if not 0 <= i < len(self.sealed) or i in seen:
+                    raise ValueError(f"compaction group index {i} is out of range or "
+                                     "duplicated; groups must partition the current "
+                                     "sealed segments")
+                seen.add(i)
+        by_width: List[List[int]] = []
+        for g in groups:
+            tiers: Dict[Optional[int], List[int]] = {}
+            for i in g:
+                tiers.setdefault(self.sealed[i].n_bins, []).append(i)
+            by_width.extend(tiers.values())
+        groups = [g for g in by_width
+                  if g and not (len(g) == 1 and self.sealed[g[0]]._all_valid)]
+        if not groups:
+            return False
+        snap = []
+        for group in groups:
+            segs = [self.sealed[i] for i in group]
+            indexed = (self.band_policy is not None
+                       and self.band_policy.wants_index(sum(s.n_live for s in segs)))
+            parts = [(_host_words(s.sketches), s.fills.cpu().numpy().copy(), s.ids.copy(),
+                      s.valid.copy(), s.born.copy(),
+                      self._band_keys(s.sketches, backend) if indexed else None)
+                     for s in segs]
+            snap.append((group, parts, segs[0].n_bins, indexed))
+        sup = self.supervisor
+
+        def work():
+            faults.inject("compact.work")
+            out = []
+            for group, parts, width, indexed in snap:
+                sk, fl, ids, born, keys, src_seg, src_row = [], [], [], [], [], [], []
+                for seg_i, (s_sk, s_fl, s_ids, s_valid, s_born, s_keys) in zip(group, parts):
+                    keep = np.nonzero(s_valid)[0]
+                    sk.append(s_sk[keep])
+                    fl.append(s_fl[keep])
+                    ids.append(s_ids[keep])
+                    born.append(s_born[keep])
+                    if indexed:
+                        keys.append(s_keys[keep])
+                    src_seg.append(np.full(len(keep), seg_i, np.int64))
+                    src_row.append(keep.astype(np.int64))
+                ids_c = np.concatenate(ids)
+                order = np.argsort(ids_c, kind="stable")
+                # a failed index build must not fail the merge: the segment
+                # comes out unindexed and the degradation is recorded
+                band_index = None
+                if indexed:
+                    try:
+                        band_index = BandIndex.build(np.concatenate(keys, axis=0)[order])
+                    except Exception as e:
+                        sup.record_degraded("band_index",
+                                            f"build failed during compaction: {e}")
+                out.append({
+                    "group": group, "n_bins": width, "rows_in": sum(len(p[2]) for p in parts),
+                    "sketches": np.concatenate(sk, axis=0)[order],
+                    "fills": np.concatenate(fl)[order],
+                    "ids": ids_c[order], "born": np.concatenate(born)[order],
+                    "src_seg": np.concatenate(src_seg)[order],
+                    "src_row": np.concatenate(src_row)[order], "band_index": band_index,
+                    "index_at_swap": False,
+                })
+            if _hold is not None:
+                _hold.wait()
+            return out
+
+        key = tuple(sorted(i for g in groups for i in g))
+        job = sup.submit("compact", key, work)
+        if job is None:  # quarantined: keep serving the current segments
+            return False
+        self._compaction = _CompactionJob(job, [self.sealed[i] for g in groups for i in g],
+                                          backend)
+        return True
+
+    def distill_async(self, policy: DistillPolicy, *, now: float = 0.0,
+                      only: Optional[Sequence[int]] = None, backend=None,
+                      _hold=None) -> bool:
+        """Re-sketch each policy-eligible sealed segment to its next smaller
+        width tier on a supervised worker thread, and swap it in.
+
+        The pattern of :meth:`compact_async`, with a fold for the merge: the
+        words are snapshot to the host here; the worker drops dead rows,
+        OR-folds N -> N' (:func:`_fold_packed_host`) and re-counts fills, in
+        host numpy; the swap uploads and reconciles on the caller's thread.
+        The folded words exist only after the worker, so their band index
+        (the base-width buckets never serve the narrower rows) is built in
+        the swap: hashed on the device through ``backend``, bucketed on the
+        host (:meth:`_band_index_for`). Each segment folds on its own.
+        ``only`` restricts eligibility to those sealed indexes. Returns False
+        when no segment is eligible or the pair is quarantined."""
+        self.wait_compaction()  # one background job over the slabs at a time
         base = self.cfg.n_bins
+        allow = None if only is None else {int(i) for i in only}
         plan: List[Tuple[int, int]] = []
         for i, seg in enumerate(self.sealed):
-            if seg.n_live == 0:
+            if seg.n_live == 0 or (allow is not None and i not in allow):
                 continue
             cur = seg.n_bins if seg.n_bins is not None else base
             age = float(now) - float(seg.born[seg.valid].max())
@@ -836,37 +1019,127 @@ class SegmentedStore:
             if tgt is not None and tgt < cur:
                 plan.append((i, tgt))
         if not plan:
-            return None
-        results = []
+            return False
+        snap = []
         for i, tgt in plan:
             seg = self.sealed[i]
             cur = seg.n_bins if seg.n_bins is not None else base
-            keep = np.nonzero(seg.valid)[0]  # ascending rows: ids stay in order
-            host = seg.sketches.cpu().numpy().view(np.uint32)
-            folded, fills = _fold_packed_host(host[keep], cur, tgt)
-            bp = self.band_policy
-            results.append({
-                "group": [i], "n_bins": tgt, "rows_in": seg.n_rows,
-                "sketches": folded, "fills": fills,
-                "ids": seg.ids[keep], "born": seg.born[keep].copy(),
-                "src_seg": np.full(len(keep), i, np.int64), "src_row": keep.astype(np.int64),
-                "band_index": (BandIndex.build_from_packed(folded, bp.n_bands)
-                               if bp is not None and bp.wants_index(len(keep)) else None),
-            })
-        return self._swap([self.sealed[i] for i, _ in plan], results)
+            snap.append((i, cur, tgt, _host_words(seg.sketches), seg.ids.copy(),
+                         seg.valid.copy(), seg.born.copy()))
 
-    def _swap(self, segments: List[SealedSegment], results) -> Dict[str, int]:
-        """Replace ``segments`` by the rewritten ones in ``results``.
+        def work():
+            faults.inject("distill.work")
+            out = []
+            for i, cur, tgt, sk, ids, valid, born in snap:
+                keep = np.nonzero(valid)[0]  # ascending rows: ids stay in order
+                folded, fills = _fold_packed_host(sk[keep], cur, tgt)
+                if faults.fire("distill.corrupt"):
+                    # silent corruption: the fold "succeeds" with garbage,
+                    # which only a recall probe can see
+                    folded = np.zeros_like(folded)
+                    fills = np.zeros_like(fills)
+                out.append({
+                    "group": [i], "n_bins": tgt, "rows_in": len(ids), "sketches": folded,
+                    "fills": fills, "ids": ids[keep], "born": born[keep],
+                    "src_seg": np.full(len(keep), i, np.int64),
+                    "src_row": keep.astype(np.int64), "band_index": None,
+                    "index_at_swap": True,
+                })
+            if _hold is not None:
+                _hold.wait()
+            return out
 
-        A rewritten row stays live only if its source row is live now: every
-        mutation that kills a sealed doc flips exactly that source bit, and a
-        dead sealed row never comes back, so liveness is one gather per
-        source segment. Rows that died after the snapshot come out as
-        tombstones in the new segment; segments not in ``segments`` stay."""
-        for seg in segments:
+        key = tuple(sorted(i for i, _ in plan))
+        job = self.supervisor.submit("distill", key, work)
+        if job is None:  # quarantined: the tier stays at its current width
+            return False
+        self._compaction = _CompactionJob(job, [self.sealed[i] for i, _ in plan], backend)
+        return True
+
+    @property
+    def job_pending(self) -> Optional[str]:
+        """The op (``"compact"`` or ``"distill"``) of the background job not
+        yet swapped in, or None."""
+        return None if self._compaction is None else self._compaction.job.op
+
+    def poll_compaction(self) -> bool:
+        """Swap in a finished background job, without blocking; True when a
+        swap happened. The query path calls it, so it never raises a
+        maintenance error: the supervisor retries transient failures (each
+        poll advances its state machine), and a job that failed for good is
+        dropped, leaving the store serving the state it never stopped
+        serving. Failures show in ``supervisor.health()``."""
+        job = self._compaction
+        if job is None:
+            return False
+        state = self.supervisor.poll(job.job)
+        if state == "running":
+            return False
+        self._compaction = None
+        if state != "succeeded":
+            return False  # logged and counted by the supervisor
+        return self._apply_swap(job) is not None
+
+    def wait_compaction(self) -> Optional[Dict[str, int]]:
+        """Drive the background job (if any) to its end, sleeping through
+        retry backoff, and apply its swap; returns its stats, or None when no
+        job was pending or it failed (never raises a job's error)."""
+        job = self._compaction
+        if job is None:
+            return None
+        self._compaction = None
+        state = self.supervisor.wait(job.job)
+        if state != "succeeded":
+            return None
+        return self._apply_swap(job)
+
+    def abandon_compaction(self, op: Optional[str] = None) -> bool:
+        """Abandon the pending background job now, with no swap and no wait.
+        ``op`` filters by operation name (None: whatever is pending). The
+        supervisor drops every reference to the worker's future result, so a
+        fold that finishes later is never swapped in. True iff a pending job
+        was discarded."""
+        pending = self._compaction
+        if pending is None:
+            return False
+        if op is not None and pending.job.op != op:
+            return False
+        self._compaction = None
+        self.supervisor.abandon(pending.job)
+        return True
+
+    def _apply_swap(self, job: "_CompactionJob") -> Optional[Dict[str, int]]:
+        """The guard between a finished worker and the query path: a swap that
+        fails (it mutates only at its very end, so the store stays
+        consistent) is recorded as the ``compaction_swap`` degraded mode,
+        never raised. A fault of the card or a kernel while uploading or
+        hashing is not a degraded mode and propagates."""
+        try:
+            return self._swap_compaction(job, job.job.result)
+        except Exception as e:
+            if is_device_fault(e):
+                raise
+            self.supervisor.record_degraded("compaction_swap", str(e))
+            return None
+
+    def _swap_compaction(self, job: "_CompactionJob", results) -> Dict[str, int]:
+        """Upload the rewritten segments in ``results`` and put them in place
+        of ``job.segments``, on the caller's thread.
+
+        The worker ran on a snapshot; the store may have moved on. A
+        rewritten row stays live only if its source row is live now: every
+        mutation that kills a sealed doc mid-job (delete, relocating update or
+        merge, expiry) flips exactly that source bit, and a dead sealed row
+        never comes back (ids are never reused), so liveness is one gather per
+        source segment (``src_seg``/``src_row``). Rows that died mid-job come
+        out as tombstones in the new segment; segments sealed after the
+        snapshot stay. The uint32 words of the host result are the same bits
+        as the device's int32 ones. A result whose index the worker could not
+        build (a distillation's) gets it here, from the uploaded words."""
+        for seg in job.segments:  # seal() only appends; jobs are serialized
             if not any(s is seg for s in self.sealed):
                 raise RuntimeError("a sealed segment vanished before its swap")
-        replaced = {id(s) for s in segments}
+        replaced = {id(s) for s in job.segments}
         stats = {"segments_in": sum(len(r["group"]) for r in results),
                  "rows_in": sum(r["rows_in"] for r in results), "rows_out": 0,
                  "groups": len(results)}
@@ -880,15 +1153,22 @@ class SegmentedStore:
                 sel = r["src_seg"] == s
                 live[sel] = self.sealed[int(s)].valid[r["src_row"][sel]]
             words = torch.from_numpy(np.ascontiguousarray(r["sketches"]).view(np.int32))
+            words = words.to(self.device)
+            band_index = (self._band_index_for(words, n, job.backend) if r["index_at_swap"]
+                          else r["band_index"])
             new_sealed.append(SealedSegment(
-                words.to(self.device), torch.from_numpy(r["fills"]).to(self.device),
-                r["ids"], live, r["born"], n_bins=r["n_bins"], band_index=r["band_index"]))
+                words, torch.from_numpy(r["fills"]).to(self.device), r["ids"], live, r["born"],
+                n_bins=r["n_bins"], band_index=band_index))
             stats["rows_out"] += n
         new_sealed.extend(s for s in self.sealed if id(s) not in replaced)
         self.sealed = new_sealed
         self._loc = {g: loc for g, loc in self._loc.items() if loc[0] == _HEAD}
         for seg_i in range(len(self.sealed)):
             self._index_segment(seg_i)
+        op = job.job.op
+        obs_metrics.inc(f"lifecycle.{op}.runs")
+        obs_metrics.inc(f"lifecycle.{op}.rows_in", stats["rows_in"])
+        obs_metrics.inc(f"lifecycle.{op}.rows_out", stats["rows_out"])
         return stats
 
     def expire(self, ttl: float, now: float) -> int:
@@ -903,4 +1183,124 @@ class SegmentedStore:
             dead.extend(int(g) for g in seg.ids[hits])
         if dead:
             self.delete(dead)
+            obs_metrics.inc("lifecycle.expired", len(dead))
         return len(dead)
+
+    # ------------------------------------------------------------ checkpoint
+    def checkpoint_tree(self) -> Tuple[dict, dict]:
+        """(tree of host arrays, aux metadata) for ``CheckpointManager.save``,
+        leaf for leaf and dtype for dtype the reference's: packed words as
+        uint32, head counters as uint16, Ψ table int32 (hash coefficients
+        uint32), fills int32, ids int64, flags bool. ``born`` stamps travel in
+        aux (JSON doubles are exact float64). A finished background job is
+        swapped in first; a running one is not waited for, so the snapshot
+        is the consistent state before its swap."""
+        self.poll_compaction()
+        self._sort_head()
+        h, n = self.head, self.head.size
+        mapping = _host(self.mapping)
+        tree = {
+            "mapping": mapping if self.cfg.mode == "table" else mapping.astype(np.uint32),
+            "head": {
+                "counters": _host(h.counters[:n]).view(np.uint16),
+                "packed": _host_words(h.packed[:n]),
+                "fills": _host(h.fills[:n]),
+                "ids": h.ids[:n].copy(),
+                "valid": h.valid[:n].copy(),
+                "exact": h.exact[:n].copy(),
+                "saturated": _host(h.sat_dev[:n]),
+            },
+            "sealed": [{"sketches": _host_words(s.sketches), "fills": _host(s.fills),
+                        "ids": s.ids.copy(), "valid": s.valid.copy()} for s in self.sealed],
+        }
+        aux = {
+            "kind": "segmented_store",
+            "cfg": {"d": self.cfg.d, "n_bins": self.cfg.n_bins, "mode": self.cfg.mode},
+            "next_id": int(self.next_id),
+            "seal_rows": self.seal_rows,
+            "ttl": self.ttl,
+            "head_rows": int(n),
+            "sealed_rows": [s.n_rows for s in self.sealed],
+            "sealed_n_bins": [s.n_bins for s in self.sealed],
+            "head_born": h.born[:n].tolist(),
+            "sealed_born": [s.born.tolist() for s in self.sealed],
+            # the band index is derived state, rebuilt from the restored slab
+            "band_policy": self.band_policy.to_aux() if self.band_policy else None,
+        }
+        return tree, aux
+
+    def save(self, manager, step: int, blocking: bool = True) -> None:
+        tree, aux = self.checkpoint_tree()
+        manager.save(step, tree, aux=aux, blocking=blocking)
+
+    @classmethod
+    def restore(cls, manager, step: Optional[int] = None, *, device="cuda", backend=None,
+                supervisor: Optional[JobSupervisor] = None) -> "SegmentedStore":
+        """Cold-restore a store onto ``device`` from a checkpoint written by
+        this package or the reference: shapes come from the aux manifest,
+        nothing is re-sketched, and the location map and live count rebuild
+        from the restored tombstone bitmaps. The step is pinned first with
+        ``manager.resolve_step`` (the newest generation that verifies), so
+        aux and arrays come from the same sound checkpoint. Band indexes are
+        rebuilt from the slabs, hashed through ``backend`` when given."""
+        dev = resolve_device(device)
+        step = manager.resolve_step(step)
+        aux = manager.load_aux(step)
+        if aux.get("kind") != "segmented_store":
+            raise ValueError(f"checkpoint is not a SegmentedStore snapshot: {aux.get('kind')!r}")
+        cfg = binsketch.BinSketchConfig(**aux["cfg"])
+        w, n = cfg.n_words, cfg.n_bins
+        hr = int(aux["head_rows"])
+        seg_widths = aux.get("sealed_n_bins") or [None] * len(aux["sealed_rows"])
+        table = cfg.mode == "table"
+        target = {
+            "mapping": np.zeros((cfg.d,) if table else (2,), np.int32 if table else np.uint32),
+            "head": {
+                "counters": np.zeros((hr, n), np.uint16),
+                "packed": np.zeros((hr, w), np.uint32),
+                "fills": np.zeros((hr,), np.int32),
+                "ids": np.zeros((hr,), np.int64),
+                "valid": np.zeros((hr,), bool),
+                "exact": np.zeros((hr,), bool),
+                "saturated": np.zeros((hr,), bool),
+            },
+            "sealed": [{"sketches": np.zeros((r, pk.num_words(nb) if nb else w), np.uint32),
+                        "fills": np.zeros((r,), np.int32),
+                        "ids": np.zeros((r,), np.int64),
+                        "valid": np.zeros((r,), bool)}
+                       for r, nb in zip(aux["sealed_rows"], seg_widths)],
+        }
+        tree, _ = manager.restore(step, target)
+        mapping = torch.from_numpy(tree["mapping"].astype(np.int32 if table else np.int64))
+        store = cls.create(cfg, mapping.to(dev), capacity=max(hr, 1),
+                           seal_rows=aux["seal_rows"], ttl=aux.get("ttl"),
+                           band_policy=BandPolicy.from_aux(aux.get("band_policy")),
+                           supervisor=supervisor)
+        store.next_id = int(aux["next_id"])
+        ht, h = tree["head"], store.head
+
+        def dev_tensor(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        h.counters[:hr] = dev_tensor(ht["counters"].view(np.int16))
+        h.packed[:hr] = dev_tensor(ht["packed"].view(np.int32))
+        h.fills[:hr] = dev_tensor(ht["fills"])
+        h.sat_dev[:hr] = dev_tensor(ht["saturated"])
+        h.ids[:hr] = ht["ids"]
+        h.valid[:hr] = ht["valid"]
+        h.born[:hr] = np.asarray(aux["head_born"], np.float64)
+        h.exact[:hr] = ht["exact"]
+        h.size = hr
+        h.is_sorted = bool(np.all(np.diff(h.ids[:hr]) > 0))
+        for st, born, nb in zip(tree["sealed"], aux["sealed_born"], seg_widths):
+            sk = dev_tensor(st["sketches"].view(np.int32))
+            store.sealed.append(SealedSegment(
+                sk, dev_tensor(st["fills"]), st["ids"], st["valid"],
+                np.asarray(born, np.float64), n_bins=int(nb) if nb else None,
+                band_index=store._band_index_for(sk, int(sk.shape[0]), backend)))
+        for seg_i in range(len(store.sealed)):
+            store._index_segment(seg_i)
+        rows = np.nonzero(h.valid[:hr])[0]
+        store._loc.update(zip(h.ids[rows].tolist(), ((_HEAD, int(r)) for r in rows)))
+        store._n_live = len(store._loc)
+        return store

@@ -9,7 +9,12 @@ interface and includes no PyTorch header, so a build takes seconds, and
 
 Every C entry point takes its pointers and the stream as ``void*`` and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero return into an error.
-Nothing here runs at import: the CPU tests import every module.
+A source that does not compile or load, and a launch that fails, raise
+:class:`KernelError`; :func:`is_device_fault` tells those, the card's own
+errors and every error raised inside this package (a wrapper refusing its
+input included) apart from everything else, so that the engine's fallbacks
+(the exhaustive scan behind the banded prefilter) never hide them. Nothing
+here runs at import: the CPU tests import every module.
 """
 
 from __future__ import annotations
@@ -23,10 +28,11 @@ import shutil
 import subprocess
 from typing import Dict, List, Sequence
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "check", "library",
-           "require_cuda", "stream_handle"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "KernelError", "build_all", "check", "is_device_fault",
+           "library", "require_cuda", "stream_handle"]
 
-CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+_PACKAGE = pathlib.Path(__file__).resolve().parent
+CSRC = _PACKAGE / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("sketch_build", "popcount_sim", "topk_stream", "count_bins", "rebucket",
            "band_hash", "hash_build")
@@ -88,6 +94,34 @@ _SIGNATURES: Dict[str, Dict[str, Sequence]] = {
 }
 
 
+class KernelError(RuntimeError):
+    """A Hopper kernel did not build, did not load, or failed at launch."""
+
+
+def is_device_fault(err: BaseException) -> bool:
+    """True for faults no fallback may hide: a kernel's own failure, the
+    card's errors (out of memory, a CUDA error surfacing in PyTorch), and any
+    error raised inside this package, which holds the kernels' wrappers and
+    their plain versions (a wrapper's refusal of its input is a ``ValueError``
+    or ``TypeError``). A degradation path re-raises these and handles only the
+    rest."""
+    if isinstance(err, KernelError):
+        return True
+    import torch
+
+    if isinstance(err, (torch.cuda.OutOfMemoryError,
+                        getattr(torch, "AcceleratorError", torch.cuda.OutOfMemoryError))):
+        return True
+    if isinstance(err, RuntimeError) and "CUDA error" in str(err):
+        return True
+    tb = err.__traceback__
+    while tb is not None:
+        if pathlib.Path(tb.tb_frame.f_code.co_filename).resolve().parent == _PACKAGE:
+            return True
+        tb = tb.tb_next
+    return False
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     if home:
@@ -125,8 +159,8 @@ def _finish(name: str, started, out: pathlib.Path) -> None:
     proc, tmp = started
     stdout, stderr = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
-                           f"{stderr}{stdout}")
+        raise KernelError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
+                          f"{stderr}{stdout}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 
 
@@ -143,7 +177,10 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if missing."""
     proc, out = _start(name)
     _finish(name, proc, out)
-    lib = ctypes.CDLL(str(out))
+    try:
+        lib = ctypes.CDLL(str(out))
+    except OSError as e:
+        raise KernelError(f"cannot load {out.name}: {e}") from e
     for fn, argtypes in _SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)
@@ -157,7 +194,7 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a C entry point of ``lib`` returned a CUDA error code."""
     if err != 0:
         name = lib.cuda_error_string(err).decode(errors="replace")
-        raise RuntimeError(f"{what}: CUDA error {err} ({name}) at launch")
+        raise KernelError(f"{what}: CUDA error {err} ({name}) at launch")
 
 
 def require_cuda(t, what: str) -> None:

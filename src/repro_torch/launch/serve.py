@@ -6,6 +6,10 @@
         --mutate-rate 0.3 --distill 212,106
     PYTHONPATH=src python -m repro_torch.launch.serve --dataset tiny --device cpu \\
         --prefilter --bands 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --dataset tiny --device cpu \\
+        --mutate-rate 0.3 --distill 212,106 --background-compact
+    PYTHONPATH=src python -m repro_torch.launch.serve --dataset tiny --device cpu \\
+        --chaos 0.3 --chaos-seed 1234
 
 ``repro.launch.serve`` on the port: generate the corpus, size N by Theorem 1,
 draw the Ψ table, stream the corpus into the store in ``--ingest-batch``
@@ -25,23 +29,40 @@ ticks once per ingest batch: birth stamps, ``--ttl`` and ``--distill-age``
 are in those ticks. ``--prefilter`` (which implies the mutable store) arms
 the banded LSH prefilter with ``--bands`` bands: sealed segments of 256 rows
 or more grow bucket indexes, queries score only colliding buckets, and a
-``prefilter:`` line reports the last batch's candidate accounting. All the
-work is in :func:`serve`; :func:`main` only reads the flags.
+``prefilter:`` line reports the last batch's candidate accounting.
+
+``--background-compact`` runs the post-mutation compaction, and each pass of
+the ``--distill`` ladder, as supervised background jobs: queries are served
+while they run, against the segments as they stand, and each query batch
+first swaps in a finished job; whatever is still pending after the loop is
+drained before the report. ``--chaos RATE`` (which implies
+``--background-compact``, ``--prefilter`` and, if unset, ``--mutate-rate
+0.3``) saves one clean checkpoint, arms a seeded fault plan firing at RATE on
+the background jobs, the band index's build and lookup and the checkpoint
+writes (torn leaves included), launches the compaction under it, saves
+asynchronously during the query loop, and reports the faults fired beside
+``engine.health()`` and a restore that walks back to the newest checkpoint
+that verifies. All the work is in :func:`serve`; :func:`main` only reads the
+flags.
 """
 
 from __future__ import annotations
 
 import argparse
+import shutil
+import tempfile
 import time
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import faults, resolve_device
+from ..checkpoint.manager import CheckpointManager
 from ..core import BinSketchConfig, make_mapping
 from ..data.synthetic import DATASETS, DatasetSpec, generate_corpus
-from ..engine import BandPolicy, DistillPolicy, QueryPlanner, SketchEngine
+from ..engine import (BandPolicy, DistillPolicy, JobSupervisor, QueryPlanner, SegmentedStore,
+                      SketchEngine, SupervisionPolicy)
 from ..obs.probe import exact_topk
 
 __all__ = ["main", "recall_at", "serve"]
@@ -53,17 +74,45 @@ def _sync(device: torch.device) -> None:
 
 
 def _serve_queries(engine: SketchEngine, q_rows: np.ndarray, topk: int, batch: int,
-                   now: Optional[float]):
-    """Query ``q_rows`` in batches; returns (scores, ids) as numpy and seconds."""
+                   now: Optional[float], maintain: Optional[Callable[[int], None]] = None,
+                   on_batch: Optional[Callable] = None):
+    """Query ``q_rows`` in batches; returns (scores, ids) as numpy, seconds and
+    the number of batches served while a background job was pending.
+
+    ``maintain(batch_index)`` runs before each batch (the maintenance
+    heartbeat of a server: it launches background jobs and saves);
+    ``on_batch(engine, rows, scores, ids, pending, now)`` sees each batch's
+    answer right after it is served, with the op of the job then pending (or
+    None) and the query clock, before anything else touches the store."""
     t0 = time.perf_counter()
     all_s, all_i = [], []
-    for s in range(0, len(q_rows), batch):
+    pending_batches = 0
+    for bi, s in enumerate(range(0, len(q_rows), batch)):
+        if maintain is not None:
+            maintain(bi)
         sc, ids = engine.query(q_rows[s : s + batch], topk, now=now)
+        pending = getattr(engine.store, "job_pending", None)
+        pending_batches += pending is not None
+        if on_batch is not None:
+            on_batch(engine, q_rows[s : s + batch], sc, ids, pending, now)
         all_s.append(sc)
         all_i.append(ids)
     ids = torch.cat(all_i).cpu().numpy()  # the copy waits for the device
     seconds = time.perf_counter() - t0
-    return torch.cat(all_s).cpu().numpy(), ids, seconds
+    return torch.cat(all_s).cpu().numpy(), ids, seconds, pending_batches
+
+
+def _chaos_plan(rate: float, seed: int) -> "faults.FaultPlan":
+    """The reference serve's chaos plan: every maintenance and query-path
+    point fires at ``rate``; checkpoint leaves tear rather than raise. The
+    ``placement.*`` points have no code in this package yet and never fire."""
+    spec = faults.FaultSpec("raise", p=rate)
+    return faults.FaultPlan({
+        "compact.work": spec, "distill.work": spec, "band.build": spec,
+        "band.lookup": spec, "placement.build": spec, "placement.refresh": spec,
+        "checkpoint.write": spec,
+        "checkpoint.leaf": faults.FaultSpec("torn-write", p=rate),
+    }, seed=seed)
 
 
 def recall_at(ids: np.ndarray, truth_ids: np.ndarray, topk: int) -> float:
@@ -72,13 +121,33 @@ def recall_at(ids: np.ndarray, truth_ids: np.ndarray, topk: int) -> float:
     return hits / (len(ids) * topk)
 
 
+def _report_distill(engine: SketchEngine, out: dict, background: bool) -> None:
+    """Print the ladder's outcome (segments by width, bytes a doc) and keep
+    ``bytes_per_doc`` in ``out``."""
+    by_w = {}
+    live_bytes = sealed_live = 0
+    base = engine.cfg.n_bins
+    for seg in engine.store.sealed:
+        w = seg.n_bins or base
+        by_w[w] = by_w.get(w, 0) + 1
+        live_bytes += seg.n_live * ((w + 31) // 32) * 4
+        sealed_live += seg.n_live
+    out["bytes_per_doc"] = live_bytes / max(sealed_live, 1)
+    print(f"distill: {out['n_tiers']} tier pass(es) in {out['distill_s']:.2f}s -> "
+          f"segments by width {sorted(by_w.items(), reverse=True)}, "
+          f"{out['bytes_per_doc']:.1f} B/doc over {sealed_live} sealed docs (base width: "
+          f"{engine.cfg.n_words * 4} B/doc); serving is mixed-width"
+          + (" (the queries above straddled the swaps)" if background else " from here"))
+
+
 def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 0.05,
           batch: int = 32, ingest_batch: int = 1024, backend: str = "auto",
           device="cuda", mapping: Optional[torch.Tensor] = None,
           mutate_rate: float = 0.0, seal_rows: Optional[int] = None,
           ttl: Optional[float] = None, distill: Optional[Sequence[int]] = None,
           distill_age: Optional[float] = None, prefilter: bool = False,
-          bands: int = 8) -> dict:
+          bands: int = 8, background_compact: bool = False, chaos: Optional[float] = None,
+          chaos_seed: int = 1234, on_batch: Optional[Callable] = None) -> dict:
     """Build a store over ``spec``'s corpus (seed 0), optionally mutate and
     distill it, serve ``queries`` surviving docs (seed 1) in batches of
     ``batch``, and check recall@``topk``.
@@ -90,11 +159,23 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
     exact top-k ids and the served scores and ids; with ``distill``,
     ``pre_distill`` holds the same readings from before the fold and the
     sealed segments as they were; with ``prefilter``, ``prefilter_stats`` the
-    last batch's candidate accounting."""
+    last batch's candidate accounting. ``background_compact`` runs the
+    compaction and the distillation ladder as background jobs during
+    serving; ``chaos`` adds the seeded fault plan and the checkpoints (see the
+    module docstring) and ``out["chaos"]`` the report; ``out["health"]`` is
+    ``engine.health()`` at the end. ``on_batch`` is handed to every query
+    loop (:func:`_serve_queries`)."""
     dev = resolve_device(device)
     idx, lens = generate_corpus(spec, seed=0)
     n = idx.shape[0]
+    if chaos is not None and chaos > 0.0:
+        # chaos needs a mutable lifecycle to fault, and band indexes to break
+        mutate_rate = mutate_rate or 0.3
+        prefilter = background_compact = True
+    else:
+        chaos = None
     mutable = mutate_rate > 0.0 or ttl is not None or distill is not None or prefilter
+    background = background_compact and mutable
     print(f"corpus: {n} docs, d={spec.d}, psi={spec.max_nnz}"
           + (f", mutate-rate={mutate_rate}" if mutable else ""))
     cfg = BinSketchConfig.from_sparsity(spec.d, int(lens.max()), rho)
@@ -102,11 +183,21 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
           f"{cfg.n_words * 4} B/doc vs {int(lens.mean()) * 4} B raw avg)")
     if mapping is None:
         mapping = make_mapping(cfg, seed=0, device=dev)
+    # the reference serve's supervision knobs under chaos: quick retries, a
+    # watchdog, quarantine after three exhausted launches
+    supervisor = (JobSupervisor(SupervisionPolicy(max_retries=3, backoff_base=0.02,
+                                                  backoff_cap=0.2, deadline=60.0,
+                                                  quarantine_after=3, probation=5.0))
+                  if chaos else None)
     engine = SketchEngine.build(
         cfg, mapping.to(dev), backend=backend,
         planner=QueryPlanner(min_batch=8, max_batch=max(batch, 8)), capacity=n,
         mutable=mutable, seal_rows=seal_rows, ttl=ttl,
-        band_policy=BandPolicy(n_bands=bands, min_rows=256) if prefilter else None)
+        # chaos lowers min_rows, as the reference does, so that a small
+        # corpus's segments get band indexes whose build and lookup can fail
+        band_policy=(BandPolicy(n_bands=bands, min_rows=64 if chaos else 256)
+                     if prefilter else None),
+        supervisor=supervisor)
     if prefilter:
         pol = engine.store.band_policy
         print(f"prefilter: {pol.n_bands} bands, escape hatch at "
@@ -146,7 +237,9 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
         if len(upd):
             engine.update(upd.tolist(), fresh_idx[upd], now=float(tick))
         engine.seal()
-        stats = engine.compact()
+        # in the background the compaction launches just before serving (and
+        # under chaos after the plan arms, so that its faults hit the merge)
+        stats = None if background else engine.compact()
         _sync(dev)
         t_mut = time.perf_counter() - t0
         for g in dele:
@@ -155,9 +248,11 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
         for g in upd:
             contents[int(g)] = fresh_idx[g]
             born[int(g)] = tick
-        print(f"mutate: {len(dele)} deleted, {len(upd)} updated, sealed + compacted "
-              f"{stats['rows_in']}->{stats['rows_out']} rows in {t_mut:.2f}s "
-              f"({n_mut / max(t_mut, 1e-9):.0f} mutations/s); live={engine.store.size}")
+        compacted = (f"compacted {stats['rows_in']}->{stats['rows_out']} rows" if stats
+                     else "compaction to run in the background")
+        print(f"mutate: {len(dele)} deleted, {len(upd)} updated, sealed + {compacted} in "
+              f"{t_mut:.2f}s ({n_mut / max(t_mut, 1e-9):.0f} mutations/s); "
+              f"live={engine.store.size}")
         out.update(n_deleted=len(dele), n_updated=len(upd), mutate_s=t_mut,
                    mutations_per_s=n_mut / max(t_mut, 1e-9))
 
@@ -183,8 +278,42 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
     q_rows = surv_rows[q_pick]
     truth_ids = surv_ids[exact_topk(surv_rows, q_rows, topk, device=dev)]
 
+    mgr = plan = None
+    saves = 0
+    if chaos:
+        ckpt_dir = tempfile.mkdtemp(prefix="repro-torch-chaos-ckpt-")
+        mgr = CheckpointManager(ckpt_dir, keep=8, supervisor=engine.supervisor)
+        # one clean generation before the plan arms: the walk-back at the end
+        # has a verifying floor to land on however many later saves tear
+        engine.store.save(mgr, step=1, blocking=True)
+        saves = 1
+        plan = faults.install(_chaos_plan(min(chaos, 1.0), chaos_seed))
+        print(f"chaos: plan armed at rate={min(chaos, 1.0)} seed={chaos_seed}; "
+              f"checkpoints in {ckpt_dir}")
+    if background:
+        engine.compact(background=True)
+
+    # the background ladder: a pass launches whenever no job is pending;
+    # ladder["policy"] goes None once nothing more is eligible
+    ladder = {"policy": None, "passes": 0}
+
+    def maintain(bi: int) -> None:
+        nonlocal saves
+        engine.poll_compaction()
+        pol = ladder["policy"]
+        if pol is not None and engine.store.job_pending is None:
+            if engine.distill(pol, now=float(tick), background=True):
+                ladder["passes"] += 1
+            else:
+                ladder["policy"] = None
+        if chaos and bi in (1, 3, 5):  # asynchronous saves under fire
+            saves += 1
+            engine.store.save(mgr, step=saves, blocking=False)
+
+    heartbeat = maintain if background else None
     if distill:
-        sc, ids, t_serve = _serve_queries(engine, q_rows, topk, batch, serve_now)
+        sc, ids, t_serve, _ = _serve_queries(engine, q_rows, topk, batch, serve_now,
+                                             heartbeat, on_batch)
         recall = recall_at(ids, truth_ids, topk)
         print(f"recall@{topk} vs exact Jaccard over survivors, before distillation: "
               f"{recall:.3f}")
@@ -193,28 +322,36 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
                               "segments": list(engine.store.sealed)}
         policy = DistillPolicy(widths=tuple(int(w) for w in distill), min_age=distill_age)
         t0 = time.perf_counter()
-        n_tiers = 0  # one pass per tier; None once nothing is eligible
-        while engine.distill(policy, now=float(tick)):
-            n_tiers += 1
-        _sync(dev)
-        t_dist = time.perf_counter() - t0
-        by_w = {}
-        live_bytes = sealed_live = 0
-        for seg in engine.store.sealed:
-            w = seg.n_bins or cfg.n_bins
-            by_w[w] = by_w.get(w, 0) + 1
-            live_bytes += seg.n_live * ((w + 31) // 32) * 4
-            sealed_live += seg.n_live
-        bytes_per_doc = live_bytes / max(sealed_live, 1)
-        print(f"distill: {n_tiers} tier pass(es) in {t_dist:.2f}s -> segments by width "
-              f"{sorted(by_w.items(), reverse=True)}, {bytes_per_doc:.1f} B/doc over "
-              f"{sealed_live} sealed docs (base width: {cfg.n_words * 4} B/doc); serving "
-              "is mixed-width from here")
-        out.update(distill_s=t_dist, n_tiers=n_tiers, bytes_per_doc=bytes_per_doc)
+        if background:
+            ladder["policy"] = policy
+        else:
+            n_tiers = 0  # one pass per tier; None once nothing is eligible
+            while engine.distill(policy, now=float(tick)):
+                n_tiers += 1
+            _sync(dev)
+            out.update(distill_s=time.perf_counter() - t0, n_tiers=n_tiers)
+            _report_distill(engine, out, background)
 
-    sc, ids, t_serve = _serve_queries(engine, q_rows, topk, batch, serve_now)
+    sc, ids, t_serve, pending_batches = _serve_queries(engine, q_rows, topk, batch, serve_now,
+                                                       heartbeat, on_batch)
     print(f"serve: {n_queries} queries in {t_serve:.2f}s "
           f"({n_queries / t_serve:.0f} q/s, batch={batch})")
+    if background:
+        # drain: the pending job, then the rest of the ladder, one pass at a
+        # time (a failed pass ends it, as in the synchronous loop)
+        engine.wait_compaction()
+        if ladder["policy"] is not None:
+            while engine.distill(ladder["policy"], now=float(tick)):
+                ladder["passes"] += 1
+        _sync(dev)
+        print(f"background: {pending_batches} query batch(es) served while a job was "
+              f"pending; {ladder['passes']} distillation pass(es)")
+        out["pending_batches"] = pending_batches
+        if distill:
+            out.update(distill_s=time.perf_counter() - t0, n_tiers=ladder["passes"])
+            _report_distill(engine, out, background)
+    if chaos:
+        out["chaos"] = _chaos_report(engine, mgr, plan, saves, dev)
     recall = recall_at(ids, truth_ids, topk)
     print(f"recall@{topk} vs exact Jaccard" + (" over survivors" if mutable else "")
           + f": {recall:.3f}")
@@ -225,11 +362,38 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
               f"escape-hatch / {st['unindexed_segments']} unindexed segment scan(s) on the "
               f"last batch; candidate fraction {frac:.4f}")
         out["prefilter_stats"] = dict(st)
+    out["health"] = engine.health()
     out.update(recall=recall, serve_s=t_serve, queries_per_s=n_queries / t_serve,
                engine=engine, corpus=idx, surv_ids=surv_ids, surv_rows=surv_rows,
                queries=q_rows, query_ids=surv_ids[q_pick], truth_ids=truth_ids, scores=sc,
                ids=ids, serve_now=serve_now)
     return out
+
+
+def _chaos_report(engine: SketchEngine, mgr: CheckpointManager, plan, saves: int,
+                  dev: torch.device) -> dict:
+    """Disarm the plan, print what it fired beside ``engine.health()``, check
+    every generation and restore the newest that verifies into a fresh store
+    on ``dev``; the checkpoints are removed after."""
+    mgr.wait()  # the last asynchronous save (supervised: never raises)
+    faults.clear()
+    h = engine.health()
+    fired = {p: k for p, k in sorted(plan.counters()["fired"].items()) if k}
+    jobs = h["jobs"]
+    print(f"chaos: {plan.total_fired} fault(s) injected {fired}")
+    print(f"chaos: jobs succeeded={sum(v.get('succeeded', 0) for v in jobs.values())} "
+          f"failed={sum(v.get('failed', 0) for v in jobs.values())} retries={h['retries']} "
+          f"abandoned={h['abandoned']} quarantined={[q['op'] for q in h['quarantined']]} "
+          f"degraded={sorted(d['component'] for d in h['degraded'])}")
+    good = mgr.resolve_step(None)
+    torn = [st for st in range(1, saves + 1) if not mgr.verify_step(st)]
+    restored = SegmentedStore.restore(mgr, device=dev, backend=engine.backend)
+    print(f"chaos: {saves} checkpoint generation(s) written, torn or failed: "
+          f"{torn if torn else 'none'}; restore walked back to step {good} "
+          f"({restored.size} live docs)")
+    shutil.rmtree(mgr.root, ignore_errors=True)
+    return {"counters": plan.counters(), "fired": fired, "saves": saves, "torn": torn,
+            "restored_step": good, "restored_live": restored.size}
 
 
 def main(argv=None):
@@ -264,6 +428,18 @@ def main(argv=None):
     ap.add_argument("--bands", type=int, default=8,
                     help="bands a sketch for --prefilter (more bands: higher recall, "
                          "larger candidate unions)")
+    ap.add_argument("--background-compact", action="store_true",
+                    help="mutable store: run the post-mutation compaction and the "
+                         "--distill ladder as background jobs while queries are served")
+    ap.add_argument("--chaos", type=float, default=None, metavar="RATE",
+                    help="arm a seeded fault plan firing at this per-hit probability on "
+                         "the background jobs, band index and checkpoint writes; serve "
+                         "with background maintenance and asynchronous checkpoints, then "
+                         "report the faults beside health() and a restore walk-back. "
+                         "Implies --background-compact, --prefilter and, if unset, "
+                         "--mutate-rate 0.3")
+    ap.add_argument("--chaos-seed", type=int, default=1234,
+                    help="the fault plan's seed for --chaos")
     args = ap.parse_args(argv)
     widths = (tuple(int(w) for w in args.distill.split(",") if w)
               if args.distill else None)
@@ -271,7 +447,9 @@ def main(argv=None):
                 rho=args.rho, batch=args.batch, ingest_batch=args.ingest_batch,
                 backend=args.backend, device=args.device, mutate_rate=args.mutate_rate,
                 seal_rows=args.seal_rows, ttl=args.ttl, distill=widths,
-                distill_age=args.distill_age, prefilter=args.prefilter, bands=args.bands)
+                distill_age=args.distill_age, prefilter=args.prefilter, bands=args.bands,
+                background_compact=args.background_compact, chaos=args.chaos,
+                chaos_seed=args.chaos_seed)
     return out["recall"]
 
 

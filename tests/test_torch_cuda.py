@@ -243,3 +243,52 @@ def test_hash_build_is_one_kernel(dev):
     on_card = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     assert len(on_card) == 5, on_card
     assert all("bitmap_build_kernel" in name for name in on_card), on_card
+
+
+def test_head_counters_take_two_bytes_a_bin_on_the_card(dev):
+    """The counting head stores 16 bits a bin on the card, and counts past
+    int16's range (but inside u16's) widen back exactly."""
+    from repro_torch.core import BinSketchConfig, counting
+    from repro_torch.engine import SegmentedStore
+
+    cfg = BinSketchConfig(d=50_000, n_bins=64)
+    mapping = torch.zeros(cfg.d, dtype=torch.int32, device=dev)  # every element -> bin 0
+    store = SegmentedStore.create(cfg, mapping, capacity=4)
+    rows = torch.full((2, 40_000), -1, dtype=torch.int32, device=dev)
+    rows[0] = torch.arange(40_000, device=dev)
+    rows[1, :10] = torch.arange(10, device=dev)
+    store.add(rows, backend=None)
+    h = store.head
+    assert h.counters.dtype == torch.int16 and h.counters.device.type == "cuda"
+    assert h.counters.element_size() * h.counters.numel() == 2 * h.capacity * cfg.n_bins
+    assert counting.widen(h.counters[:2, 0]).tolist() == [40_000, 10]
+    assert h.fills[:2].tolist() == [1, 1]
+
+
+def test_background_compaction_and_checkpoint_on_the_card(dev, tmp_path):
+    """A background compaction uploads its host merge at the swap, and a
+    checkpoint of the card's store restores onto the card bit for bit."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import BinSketchConfig, make_mapping
+    from repro_torch.engine import SegmentedStore, SketchEngine
+
+    cfg = BinSketchConfig(d=4096, n_bins=517)
+    mapping = make_mapping(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    docs = torch.randint(0, cfg.d, (300, 40), generator=gen, device=dev, dtype=torch.int32)
+    eng = SketchEngine.build(cfg, mapping, backend="cuda", mutable=True, seal_rows=100)
+    eng.add(docs)
+    eng.delete([5, 150, 250])
+    q = docs[:16]
+    want = eng.query(q, 10)
+    eng.compact(background=True)
+    stats = eng.wait_compaction()
+    assert stats["rows_out"] == 297 and eng.store.sealed[0].sketches.device.type == "cuda"
+    got = eng.query(q, 10)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    eng.store.save(CheckpointManager(str(tmp_path)), step=1)
+    back = SegmentedStore.restore(CheckpointManager(str(tmp_path)), device=dev,
+                                  backend=eng.backend)
+    again = SketchEngine(back, eng.backend).query(q, 10)
+    assert torch.equal(again[0], want[0]) and torch.equal(again[1], want[1])
+    assert eng.health()["degraded"] == []

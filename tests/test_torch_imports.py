@@ -46,7 +46,9 @@ def test_port_imports_without_cuda_and_default_raises(monkeypatch):
         importlib.import_module(name)
     assert "repro_torch.hopper.ops" in names and "repro_torch.launch.serve" in names
     for new in ("repro_torch.engine.banding", "repro_torch.hopper.band_hash",
-                "repro_torch.hopper.hash_build"):
+                "repro_torch.hopper.hash_build", "repro_torch.faults",
+                "repro_torch.obs.clock", "repro_torch.obs.metrics",
+                "repro_torch.engine.supervision", "repro_torch.checkpoint.manager"):
         assert new in names
 
     import repro_torch

@@ -87,8 +87,10 @@ def assert_same_state(jstore, tstore):
     assert n == jh.size and th.is_sorted == jh.is_sorted
     for name in ("ids", "valid", "born", "exact"):
         np.testing.assert_array_equal(getattr(th, name)[:n], getattr(jh, name)[:n], err_msg=name)
-    np.testing.assert_array_equal(th.counters[:n].numpy(),
-                                  np.asarray(jh.counters[:n]).astype(np.int32))
+    # the head's counters are the reference's u16 bits, two bytes a bin
+    assert th.counters.element_size() == np.asarray(jh.counters).itemsize == 2
+    np.testing.assert_array_equal(th.counters[:n].numpy().view(np.uint16),
+                                  np.asarray(jh.counters[:n]))
     np.testing.assert_array_equal(packed_to_reference(th.packed[:n]), np.asarray(jh.packed[:n]))
     np.testing.assert_array_equal(th.fills[:n].numpy(), np.asarray(jh.fills[:n]))
     np.testing.assert_array_equal(th.saturated[:n], jh.saturated[:n])
@@ -275,6 +277,39 @@ def test_saturated_counters_refuse_retraction(monkeypatch):
     assert not ts.head.saturated[0] and ts.head.exact[0]
     ts.retract_rows([0], _rows([0], pad=6))
     assert ts.head.counters[0, 0] == 1
+
+
+def test_sixteen_bit_counters_saturate_as_the_reference():
+    """At the real clamp (65535), against the JAX store's u16 counters: a doc
+    with 66,000 elements in one bin saturates (clamped, flagged, retraction
+    refused) and one with 40,000 (past int16's range, inside u16's) keeps its
+    exact count and retracts; the stored bits, packed rows and flags equal
+    the reference's after each step."""
+    from repro.engine import SegmentedStore as JStore
+
+    d = 70_000
+    m = np.zeros(d, np.int32)
+    m[-3:] = [1, 2, 3]  # all but three elements share bin 0
+    jcfg, tcfg = JCfg(d=d, n_bins=4), config_from_reference(d, 4)
+    rows = np.full((2, 66_000), -1, np.int32)
+    rows[0] = np.arange(66_000)
+    rows[1, :40_000] = np.arange(40_000)
+    rows[1, 40_000:40_002] = [d - 2, d - 1]
+    js = JStore.create(jcfg, jax.numpy.asarray(m), capacity=2)
+    ts = SegmentedStore.create(tcfg, torch.from_numpy(m), capacity=2)
+    js.add(jax.numpy.asarray(rows))
+    ts.add(rows)
+    assert_same_state(js, ts)
+    assert ts.head.counters.dtype == torch.int16 and ts.head.counters.element_size() == 2
+    assert tcount.widen(ts.head.counters[:2, 0]).tolist() == [65535, 40000]
+    assert ts.head.saturated[:2].tolist() == [True, False]
+    drop = _rows(list(range(30_000)) + [d - 1], pad=30_001)
+    for store in (js, ts):
+        with pytest.raises(ValueError, match="saturated"):
+            store.retract_rows([0], drop)
+        store.retract_rows([1], drop)
+    assert_same_state(js, ts)
+    assert tcount.widen(ts.head.counters[1]).tolist() == [10000, 0, 1, 0]
 
 
 # ---------------------------------------------------------- store surface
