@@ -19,8 +19,19 @@ Phases, each fatal on failure (nothing is caught while the run goes on):
    ``score_all`` on 64 of those queries, held against their ``query``
    results. Kernel launch counters are zeroed just before and read just
    after; every kernel must have launched. Recall@10 against exact Jaccard
-   must reach 0.3, the floor the JAX driver's test holds it to. The same
-   queries are then served once more, warm, for a steady-state rate.
+   must reach 0.3, the floor the JAX driver's test holds it to. ``serve``
+   runs with the telemetry plane armed: its ``query.calls`` and
+   ``query.rows`` must count the 4 batches and 1024 rows. ``RecallProbe(
+   sample=64)`` over the served queries (its ground truth on a side stream
+   of the card) must publish exactly the ``recall_at`` of ``serve``'s own
+   ids and truth over the same 64 queries. The same queries are then served
+   once more, warm, for a steady-state rate, and put through
+   :func:`telemetry_checks`: disarmed and armed (every call sampled) the
+   answers must be bit-equal, the counters exact, every trace's stages in
+   ``STAGES`` order, and under ``torch.profiler`` the ``kernel_score``
+   stage total (CUDA events) at least 0.9x the device time of the top-k and
+   score kernels the serve launched; warm q/s armed and disarmed and the
+   stage totals are printed.
 2b. The mutable path, through the same entry point: ``serve`` over the same
    corpus with ``mutate_rate=0.3`` (45,000 docs deleted and 45,000 updated
    at 300,000, into the counting head, sealed and compacted) and the
@@ -45,17 +56,21 @@ Phases, each fatal on failure (nothing is caught while the run goes on):
    result is the exact top-k over the candidate set, computed apart from the
    index with the plain band hash, up to score ties; and each query's own doc
    is in its result. Recall@10 against exact Jaccard is printed with no
-   floor (uniform docs rarely share a whole 736-bit band). ``band_hash`` is
-   then held against its plain version (exact) at the path's shapes and
-   timed beside its bound.
+   floor (uniform docs rarely share a whole 736-bit band). The warm serve
+   goes through :func:`telemetry_checks` (with ``band_lookup`` in every
+   trace, and the traces' per-segment candidates reproducing the phase's
+   candidate fraction). ``band_hash`` is then held against its plain version
+   (exact) at the path's shapes and timed beside its bound.
 2d. The prefilter at serving scale: the JAX repo's ``bench_engine
    run_prefilter`` defaults, 1,000,000 clustered docs (N=512, d=4096, 48
    indices, clusters of 12) sealed as 4 segments through ``seal_sketches``,
    ``BandPolicy()``, 64 near-duplicate queries. Recall@10 of the
    prefiltered ids against the exhaustive ones must reach 0.95, some
    segment must be banded, the candidate fraction must stay under the
-   escape hatch, and the returned scores must equal the exhaustive ones.
-   ``--prefilter-docs`` shrinks the corpus for rehearsals.
+   escape hatch, and the returned scores must equal the exhaustive ones;
+   then :func:`telemetry_checks` over the 64 queries as one call, the
+   traces reproducing the candidate fraction. ``--prefilter-docs`` shrinks
+   the corpus for rehearsals.
 2e. Hash mode: the NYTimes-shaped corpus sketched by ``ops.hash_build_sketch``
    (multiply-shift coefficients from ``make_mapping``, mode ``hash``, the
    table path's N) in batches of 16384, bulk-loaded with
@@ -111,8 +126,8 @@ Phases, each fatal on failure (nothing is caught while the run goes on):
    degraded component) or, for torn leaves, by a generation that fails
    verification, and the restore lands on one that verifies.
    *left behind*: no job pending on any of the phase's stores, every thread
-   the phase started ended, no fault plan armed and no metrics registry
-   installed; then, as a reading, how many of 20 one-kernel calls
+   the phase started ended, no fault plan armed and no metrics registry or
+   trace collector installed; then, as a reading, how many of 20 one-kernel calls
    ``torch.profiler`` records after the phase.
 
 The line before the last lists the seven kernels as JSON (every phase's
@@ -396,14 +411,16 @@ def share_corpora() -> None:
         serve_mod.generate_corpus = functools.lru_cache(maxsize=None)(serve_mod.generate_corpus)
 
 
-def serve_warm(torch, engine, queries, now, prefilter=None) -> float:
-    """Queries per second of serving ``queries`` again in batches of 256."""
+def serve_batches(torch, engine, queries, now, prefilter=None, batch=256):
+    """(scores, ids) of ``queries`` served in batches of ``batch`` at k=10,
+    and the warm rate in queries per second (host clock between syncs)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for s in range(0, len(queries), 256):
-        engine.query(queries[s : s + 256], 10, now=now, prefilter=prefilter)
+    got = [engine.query(queries[s : s + batch], 10, now=now, prefilter=prefilter)
+           for s in range(0, len(queries), batch)]
     torch.cuda.synchronize()
-    return len(queries) / (time.perf_counter() - t0)
+    qps = len(queries) / (time.perf_counter() - t0)
+    return torch.cat([g[0] for g in got]), torch.cat([g[1] for g in got]), qps
 
 
 def view_truth(torch, engine, queries, now, backend=None):
@@ -530,7 +547,7 @@ def mutable_phase(torch, dev, spec, n_bins: int):
     print(f"recall@10 of a fresh build at N'={n2} under psi mod {n2}: "
           f"{recall_consistent:.4f} (the distilled store, served: {out['recall']:.4f})")
     del consistent
-    warm_qps = serve_warm(torch, engine, queries, now)
+    warm_qps = serve_batches(torch, engine, queries, now)[2]
     # one query chunk's top-k over the sealed survivors, before and after
     # the ladder: the kernel time behind the two serving rates
     q256 = queries[:256]
@@ -712,46 +729,128 @@ def band_hash_rows(torch, dev, words, launches):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
-def prefilter_stages(torch, engine, queries, now=None) -> dict:
-    """Median host-clock milliseconds of one prefiltered planner chunk's
-    stages, each ended by a device sync: query sketch, band keys (hash and
-    copy to the host), bucket lookup, candidate gather plus top-k, merge,
-    over 5 runs. It rebuilds ``SketchEngine._prefiltered_topk``'s loop from
-    the engine's own stage methods for banded segments only (no head, no
-    unindexed segment, no escape hatch), so it times a copy of that loop:
-    every sealed segment must be banded (the phases that call this check)."""
-    from repro_torch.engine import merge_segment_topk
+def telemetry_checks(torch, engine, queries, now, phase: str, prefilter=None, batch=256,
+                     frac=None) -> dict:
+    """The engine's own telemetry over a warm serve of ``queries``, held to
+    what it observes. The serve runs disarmed, then armed (``enable_metrics``,
+    every call sampled): the answers must be bit-equal, scores and ids;
+    ``query.calls`` and ``query.rows`` must count the batches and rows; every
+    trace's stages are ``STAGES`` names in ``STAGES`` order, with
+    ``rebucket`` and ``kernel_score`` (and ``band_lookup`` when banded); with
+    ``frac``, the traces' per-segment candidates must reproduce it. Then the
+    armed serve once more under ``torch.profiler``: its ``kernel_score``
+    stage total (CUDA events) must be at least 0.9x the device time of the
+    top-k and score kernels it launched (every launch recorded, else the
+    window is retried, three times at most). Returns the readings: both
+    rates and the stage totals in ms."""
+    from repro_torch import obs
+    from repro_torch.hopper import ops
 
-    chunk = engine.planner.plan(len(queries))[0]
-    runs = []
-    for _ in range(5):
-        ms = dict.fromkeys(("sketch", "band_keys", "lookup", "gather_topk", "merge"), 0.0)
+    n_batches = -(-len(queries) // batch)
+    if obs.metrics.active() is not None or obs.trace.active() is not None:
+        fail(f"phase {phase}: telemetry armed before its check")
+    sc0, ix0, qps_off = serve_batches(torch, engine, queries, now, prefilter, batch)
+    engine.enable_metrics(sample=1, capacity=n_batches)
+    try:
+        sc1, ix1, qps_on = serve_batches(torch, engine, queries, now, prefilter, batch)
+        m = engine.metrics(now)
+        traces = obs.trace.active().traces()
+    finally:
+        obs.disable()
+    if not (torch.equal(sc0, sc1) and torch.equal(ix0, ix1)):
+        fail(f"phase {phase}: answers with metrics armed differ from the same serve disarmed")
+    calls, rows = m["counters"].get("query.calls"), m["counters"].get("query.rows")
+    if (calls, rows, len(traces)) != (n_batches, len(queries), n_batches):
+        fail(f"phase {phase}: query.calls {calls}, query.rows {rows}, {len(traces)} traces "
+             f"over {n_batches} batches of {len(queries)} rows")
+    need = {"rebucket", "kernel_score"} | ({"band_lookup"} if prefilter else set())
+    for tr in traces:
+        names = list(tr["stages_s"])
+        if (not set(names) <= set(obs.STAGES) or not need <= set(names)
+                or names != sorted(names, key=obs.STAGES.index)):
+            fail(f"phase {phase}: trace stages {names} are not {obs.STAGES} in order "
+                 f"with {sorted(need)}")
+    readings = {"warm_queries_per_s_disarmed": qps_off, "warm_queries_per_s_armed": qps_on,
+                "stage_ms": {name: m["histograms"][f"query.stage.{name}_s"]["sum"] * 1e3
+                             for name in obs.STAGES
+                             if f"query.stage.{name}_s" in m["histograms"]}}
+    if frac is not None:
+        seg_rows = sum(s["rows"] for tr in traces for s in tr["segments"])
+        cand = sum(s["candidates"] for tr in traces for s in tr["segments"])
+        if cand / max(seg_rows, 1) != frac:
+            fail(f"phase {phase}: the traces' candidate fraction {cand / max(seg_rows, 1)} "
+                 f"is not the phase's {frac}")
+        readings["trace_candidate_fraction"] = cand / max(seg_rows, 1)
+    names = ("sketch_topk_partial_kernel", "sketch_topk_merge_kernel", "sketch_score_kernel")
+    for attempt in range(3):
+        deltas = []
 
-        def timed(name, fn):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got = fn()
-            torch.cuda.synchronize()
-            ms[name] += (time.perf_counter() - t0) * 1e3
-            return got
+        def armed_serve():
+            engine.enable_metrics(sample=1, capacity=n_batches)  # the last call's stages
+            before = dict(ops.launches)
+            serve_batches(torch, engine, queries, now, prefilter, batch)
+            deltas.append({k: ops.launches[k] - before[k] for k in before})
 
-        qs = timed("sketch", lambda: engine._padded_query_sketches(queries[: chunk.rows],
-                                                                   chunk.padded))
-        width_cache, qkeys_cache, parts = {}, {}, []
-        for seg in engine.store.sealed:
-            nb = seg.n_bins or engine.cfg.n_bins
-            qk = timed("band_keys", lambda: engine._query_band_keys(qs, nb, chunk.rows,
-                                                                    width_cache, qkeys_cache))
-            cand = timed("lookup", lambda: engine._segment_candidates(seg, qk, now))
-            if cand is None:
-                fail("prefilter_stages: a segment went through the escape hatch")
-            parts.append(timed("gather_topk", lambda: engine._gathered_part(qs, seg, cand, 10,
-                                                                            width_cache)))
-        if len(parts) > 1:
-            timed("merge", lambda: merge_segment_topk([p[0] for p in parts],
-                                                      [p[1] for p in parts], 10))
-        runs.append(ms)
-    return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+        try:
+            measured, _, _ = profiler_window(torch, armed_serve, 1, 1)
+            stage_ms = obs.metrics.active().snapshot()["histograms"][
+                "query.stage.kernel_score_s"]["sum"] * 1e3
+        finally:
+            obs.disable()
+        ks = [e for e in measured if any(n in e.name for n in names)]
+        seen = (sum("sketch_topk_partial" in e.name for e in ks),
+                sum("sketch_score_kernel" in e.name for e in ks))
+        if seen == (deltas[-1]["sketch_topk"], deltas[-1]["sketch_score"]) and sum(seen):
+            break
+        print(f"phase {phase}: profiler window {attempt} recorded {seen} of "
+              f"{deltas[-1]['sketch_topk']} top-k and {deltas[-1]['sketch_score']} score "
+              "launches; again")
+    else:
+        fail(f"phase {phase}: the profiler never recorded every top-k and score kernel")
+    kernel_ms = sum(e.time_range.elapsed_us() for e in ks) / 1e3
+    if not stage_ms >= 0.9 * kernel_ms:
+        fail(f"phase {phase}: kernel_score stage total {stage_ms} ms is under 0.9x the "
+             f"{kernel_ms} ms of device time of the kernels it launched")
+    readings.update(kernel_score_stage_ms=stage_ms, score_topk_kernel_ms=kernel_ms,
+                    stage_over_kernel=stage_ms / kernel_ms,
+                    profiled_launches={"sketch_topk": seen[0], "sketch_score": seen[1]})
+    print(f"phase {phase} telemetry: warm {qps_off:.1f} q/s disarmed, {qps_on:.1f} q/s armed "
+          f"(sample 1); answers bit-equal; {calls} calls / {rows} rows counted; stage totals "
+          f"over the warm serve, ms: {readings['stage_ms']}; kernel_score {stage_ms:.4f} ms "
+          f"against {kernel_ms:.4f} ms of top-k and score kernels under the profiler "
+          f"({stage_ms / kernel_ms:.3f}x)")
+    return readings
+
+
+def probe_check(torch, engine, out) -> dict:
+    """``RecallProbe(sample=64)`` over phase 2's served queries: its ground
+    truth on a side stream of the card, the engine queried again for the 64
+    it samples; the published ``probe.recall`` must equal ``recall_at`` over
+    the same 64 rows of the serve's own ids and exact truth, exactly."""
+    from repro_torch import obs
+    from repro_torch.launch.serve import recall_at
+
+    reg = engine.enable_metrics()
+    try:
+        pr = obs.RecallProbe(engine, k=10, sample=64, seed=0)
+        t0 = time.perf_counter()
+        if not pr.launch(out["surv_ids"], out["surv_rows"], queries=out["queries"]):
+            fail("the recall probe's launch was refused")
+        t_launch = time.perf_counter() - t0
+        got = pr.wait(timeout=600.0)
+        t_probe = time.perf_counter() - t0
+        gauge = reg.gauge("probe.recall")
+    finally:
+        obs.disable()
+    pick = np.random.default_rng(0).choice(len(out["queries"]), 64, replace=False)
+    want = recall_at(out["ids"][pick], out["truth_ids"][pick], 10)
+    if got is None or got != want or gauge != got:
+        fail(f"probe recall {got} (gauge {gauge}) differs from serve's recall_at {want} over "
+             "the same 64 queries")
+    print(f"probe: recall@10 {got} over 64 of the served queries, equal to serve's recall_at "
+          f"over them; launch {t_launch:.3f}s, reading after {t_probe:.3f}s")
+    return {"recall": got, "serve_recall_same_queries": want, "launch_s": t_launch,
+            "reading_s": t_probe, "health": engine.health()["jobs"].get("probe")}
 
 
 def prefilter_phase(torch, dev, spec):
@@ -806,8 +905,8 @@ def prefilter_phase(torch, dev, spec):
             fail("a query's own doc is missing from its prefiltered result")
         del truth, masked
     frac = totals["cand_rows"] / max(totals["seg_rows"], 1)
-    qps_pf = serve_warm(torch, engine, queries, now, prefilter=True)
-    qps_ex = serve_warm(torch, engine, queries, now, prefilter=False)
+    qps_pf = serve_batches(torch, engine, queries, now, prefilter=True)[2]
+    qps_ex = serve_batches(torch, engine, queries, now, prefilter=False)[2]
     ids_ex = torch.cat([engine.query(queries[s : s + 256], 10, now=now, prefilter=False)[1]
                         for s in range(0, len(queries), 256)]).cpu().numpy()
     recall_ex = recall_at(ids_ex, out["truth_ids"], 10)
@@ -817,8 +916,7 @@ def prefilter_phase(torch, dev, spec):
           f"{qps_pf:.1f} q/s prefiltered, {qps_ex:.1f} q/s exhaustive (warm); recall@10 vs "
           f"exact Jaccard {out['recall']:.4f} prefiltered, {recall_ex:.4f} exhaustive "
           "(no floor)")
-    stages = prefilter_stages(torch, engine, queries[:256], now)
-    print(f"prefilter: one 256-query chunk, ms by stage (host clock, synced): {stages}")
+    tele = telemetry_checks(torch, engine, queries, now, "2c", prefilter=True, frac=frac)
     jobs = assert_healthy(engine, "2c")
     seg = max(store.sealed, key=lambda x: x.n_rows)
     row = band_hash_rows(torch, dev, seg.sketches, launches)
@@ -832,7 +930,7 @@ def prefilter_phase(torch, dev, spec):
         "warm_queries_per_s_exhaustive": qps_ex, "speedup": qps_pf / qps_ex,
         "recall": out["recall"], "recall_exhaustive": recall_ex,
         "ingest_docs_per_s": out["docs_per_s"], "mutate_s": out["mutate_s"],
-        "max_abs_err": worst, "chunk_stage_ms": stages, "jobs": jobs,
+        "max_abs_err": worst, "telemetry": tele, "jobs": jobs,
     }
     return row, readings
 
@@ -918,14 +1016,14 @@ def prefilter_scale_phase(torch, dev, n_docs: int):
             times[pf].append(time.perf_counter() - t0)
     qps_pf = queries / statistics.median(times[True])
     qps_ex = queries / statistics.median(times[False])
-    stages = prefilter_stages(torch, engine, q)
+    tele = telemetry_checks(torch, engine, q, None, "2d", prefilter=True, batch=queries,
+                            frac=frac)
     assert_healthy(engine, "2d")
     print(f"prefilter at scale: {n_docs} clustered docs in {segments} segments (ingest "
           f"{n_docs / t_ingest:.1f} docs/s), {queries} near-duplicate queries: recall@10 vs "
           f"exhaustive {recall:.4f} (floor 0.95), candidate fraction {frac:.6f}, "
           f"{stats['banded_segments']} banded segments; {qps_pf:.1f} q/s prefiltered vs "
-          f"{qps_ex:.1f} q/s exhaustive (ratio {qps_pf / qps_ex:.3f}); ms by stage of the "
-          f"prefiltered chunk (host clock, synced): {stages}")
+          f"{qps_ex:.1f} q/s exhaustive (ratio {qps_pf / qps_ex:.3f})")
     return {"n_docs": n_docs, "n_bins": n_bins, "d": d, "nnz": nnz, "cluster": cluster,
             "segments": segments, "queries": queries, "n_bands": policy.n_bands,
             "max_candidate_frac": policy.max_candidate_frac, "recall_vs_exhaustive": recall,
@@ -933,7 +1031,7 @@ def prefilter_scale_phase(torch, dev, n_docs: int):
             "queries_per_s_prefilter": qps_pf, "queries_per_s_exhaustive": qps_ex,
             "ratio": qps_pf / qps_ex, "ingest_docs_per_s": n_docs / t_ingest,
             "band_hash_launches": launches["band_hash"], "max_abs_err": err,
-            "chunk_stage_ms": stages}
+            "telemetry": tele}
 
 
 def hash_mode_phase(torch, dev, spec, corpus, queries_np, truth_ids, n_bins: int):
@@ -977,7 +1075,7 @@ def hash_mode_phase(torch, dev, spec, corpus, queries_np, truth_ids, n_bins: int
     recall = recall_at(ids, truth_ids, 10)
     if recall < 0.3:
         fail(f"hash-mode recall@10 {recall:.3f} below 0.3")
-    warm = serve_warm(torch, engine, queries, None)
+    warm = serve_batches(torch, engine, queries, None)[2]
     assert_healthy(engine, "2e")
     print(f"hash mode: {n} docs hash-built at N={n_bins} in {t_build:.3f}s "
           f"({n / t_build:.1f} docs/s), every batch bit-equal to map-then-build; "
@@ -1042,22 +1140,24 @@ def assert_healthy(engine, phase: str, allow=()) -> dict:
 def assert_nothing_left(threads_before) -> dict:
     """What the operations plane could leave to the rest of the process (and
     to ``torch.profiler``): a worker thread still alive (a job in flight, an
-    asynchronous save), an armed fault plan, an installed metrics registry.
-    Threads started since ``threads_before`` are joined (a finished job's
-    thread ends at once; ten seconds each at most) and must all have ended;
-    the plan and the registry must be gone. Returns the readings."""
-    from repro_torch import faults
-    from repro_torch.obs import metrics as obs_metrics
+    asynchronous save), an armed fault plan, an installed metrics registry or
+    trace collector. Threads started since ``threads_before`` are joined (a
+    finished job's thread ends at once; ten seconds each at most) and must
+    all have ended; the plan, the registry and the collector must be gone.
+    Returns the readings."""
+    from repro_torch import faults, obs
 
     started = [t for t in threading.enumerate() if t not in threads_before]
     for t in started:
         t.join(timeout=10.0)
     alive = [t.name for t in started if t.is_alive()]
-    if alive or faults.active() is not None or obs_metrics.active() is not None:
-        fail(f"the operations plane left threads {alive} alive, fault plan "
-             f"{faults.active()}, metrics registry {obs_metrics.active()}")
+    armed = (faults.active(), obs.metrics.active(), obs.trace.active())
+    if alive or any(a is not None for a in armed):
+        fail(f"the operations plane left threads {alive} alive; fault plan, metrics registry "
+             f"and trace collector: {armed}")
     return {"threads_started": len(started), "threads_alive": len(alive),
-            "active_count": threading.active_count(), "fault_plan": None, "metrics": None}
+            "active_count": threading.active_count(), "fault_plan": None, "metrics": None,
+            "trace": None}
 
 
 def check_as_it_stands(torch, engine, q, now, sc, ix, what: str, exhaustive: bool = True):
@@ -1358,15 +1458,21 @@ def main(argv=None) -> int:
     for name in MAIN_PATH_KERNELS:
         if launches[name] < 1:
             fail(f"kernel {name} never launched on the main path")
+    # serve's own telemetry (armed for its run): its counters are exact
+    served = out["metrics"]["counters"]
+    if (served.get("query.calls"), served.get("query.rows")) != (4, 1024):
+        fail(f"serve counted {served.get('query.calls')} calls / {served.get('query.rows')} "
+             "rows for 4 batches of 256")
+    out["probe"] = probe_check(torch, engine, out)
     # the same queries again, with every library loaded and every kernel
-    # launched once: serve's own reading includes those first-use costs
-    t0 = time.perf_counter()
-    for s in range(0, len(out["queries"]), 256):
-        warm_ids = engine.query(out["queries"][s : s + 256], 10)[1]
-    torch.cuda.synchronize()
-    out["warm_queries_per_s"] = len(out["queries"]) / (time.perf_counter() - t0)
-    if not torch.equal(warm_ids.cpu(), torch.from_numpy(out["ids"][-len(warm_ids):])):
-        fail("a repeated query batch returned other ids")
+    # launched once (serve's own reading includes those first-use costs),
+    # disarmed and armed, and under the profiler
+    queries = torch.from_numpy(out["queries"]).to(dev)
+    _, warm_ids, _ = serve_batches(torch, engine, queries, None)
+    if not torch.equal(warm_ids.cpu(), torch.from_numpy(out["ids"])):
+        fail("a repeated serve returned other ids")
+    out["telemetry"] = telemetry_checks(torch, engine, queries, None, "2")
+    out["warm_queries_per_s"] = out["telemetry"]["warm_queries_per_s_disarmed"]
     assert_healthy(engine, "2")
 
     # the engine goes; phase 3 keeps its slab, cfg and map
@@ -1530,7 +1636,8 @@ def main(argv=None) -> int:
     ops_plane["phase_s"] = phase_s
     print(json.dumps({"serve": {k: out[k] for k in ("n_docs", "n_bins", "n_words", "build_s",
                                                   "docs_per_s", "serve_s", "queries_per_s",
-                                                  "warm_queries_per_s", "recall")}}))
+                                                  "warm_queries_per_s", "recall", "probe",
+                                                  "telemetry")}}))
     print(json.dumps({"mutable": mut}))
     print(json.dumps({"prefilter": pf}))
     print(json.dumps({"hash_mode": hm}))

@@ -7,7 +7,7 @@ which feed both the same numpy inputs and hold this one to the other's result.
 Layout (the slices of the JAX package so far: append-only serving; the
 mutable arm with distillation and mixed-width queries; the banded prefilter
 and hash mode; the operations plane of supervision, fault injection,
-background jobs and checkpoints):
+background jobs and checkpoints; the telemetry plane):
 
 | piece | module | role |
 |---|---|---|
@@ -21,7 +21,8 @@ background jobs and checkpoints):
 | checkpoints | checkpoint/manager.py | atomic, async, CRC-verified checkpoints on the reference's layout |
 | fault injection | faults.py | seeded fault plans over named injection points |
 | time and metrics | obs/clock.py, obs/metrics.py | the injectable clock; counters, gauges, histograms |
-| ground truth | obs/probe.py | exact Jaccard top-k |
+| query traces | obs/trace.py | sampled per-query stages, timed by CUDA events on the card |
+| ground truth | obs/probe.py | exact Jaccard top-k; the online recall probe |
 | driver | launch/serve.py | the paper's ranking experiment as a service, append-only or mutable |
 | state from the reference | convert.py | Ψ tables, packed words and whole stores of the JAX package |
 

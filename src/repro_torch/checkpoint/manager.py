@@ -94,6 +94,10 @@ class BackgroundJob:
         """True once ``fn`` has finished (successfully or not)."""
         return not self._thread.is_alive()
 
+    def join(self) -> None:
+        """Block until ``fn`` has finished."""
+        self._thread.join()
+
     @property
     def error(self) -> Optional[BaseException]:
         """The stored exception, if ``fn`` failed (valid once :meth:`done`)."""

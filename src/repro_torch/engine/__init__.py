@@ -3,12 +3,12 @@
 | piece | file | role |
 |---|---|---|
 | SketchStore | store.py | packed corpus, incremental ingest, fill cache |
-| SegmentedStore | segments.py | counting head, sealed segments, tombstones, compaction and distillation (synchronous or background), checkpoints |
+| SegmentedStore | segments.py | counting head, sealed segments, tombstones, compaction and distillation (synchronous or background), checkpoints, hits and lifecycle_snapshot() |
 | JobSupervisor | supervision.py | retries, watchdog, quarantine, degraded modes, health() of background jobs |
 | BandPolicy, BandIndex | banding.py | the banded LSH prefilter's knobs and per-segment bucket index |
 | Backend registry | backends.py | reference / cuda behind one name |
 | QueryPlanner | planner.py | ragged batches -> bounded set of padded shapes |
-| SketchEngine | engine.py | build + add + lifecycle verbs + score_all + mixed-width, prefiltered query + health() |
+| SketchEngine | engine.py | build + add + lifecycle verbs + score_all + mixed-width, prefiltered query + health() + enable_metrics() / metrics() |
 """
 
 from .backends import Backend, CudaBackend, ReferenceBackend, available_backends, get_backend

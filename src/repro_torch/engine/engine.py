@@ -31,20 +31,33 @@ same answers, more rows), and each fallback, the escape hatch included, is
 recorded in :meth:`SketchEngine.health`. A kernel that fails to build or
 launch, a kernel wrapper that refuses its input, or an error of the card is
 never such a fallback: it propagates (``hopper.build.is_device_fault``).
-Placement and telemetry of the JAX engine come in later slices.
+
+Telemetry, as in the reference: one injected clock (``build(clock=)``)
+resolves ``now`` for queries that carry none; every query counts
+``query.calls`` / ``query.rows`` / ``query.k_overflow`` in the armed
+registry (:meth:`SketchEngine.enable_metrics`), a sampled query records a
+:class:`~repro_torch.obs.trace.QueryTrace` over the stages ``rebucket``
+(the chunk's query sketch), ``band_lookup``, ``candidate_gather``,
+``kernel_score`` and ``merge`` (timed with CUDA events on the card), and
+every scored segment and the head count a hit on the host.
+:meth:`SketchEngine.metrics` composes it all into one JSON-safe snapshot.
+Placement of the JAX engine comes in a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..core import binsketch
 from ..hopper.build import is_device_fault
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from . import backends as backends_mod
 from .backends import Backend
 from .banding import BandPolicy
@@ -82,6 +95,9 @@ class SketchEngine:
     backend: Backend
     measure: str = "jaccard"
     planner: QueryPlanner = dataclasses.field(default_factory=QueryPlanner)
+    # the injected clock: queries with no explicit ``now`` resolve TTL against
+    # it (else the store's), and metrics and traces stamp their times with it
+    clock: Optional[Callable[[], float]] = None
     # the last prefiltered query's candidate accounting (rows of indexed
     # segments, candidate rows, and the segments scanned banded, through the
     # escape hatch, or unindexed); None until a prefiltered query runs
@@ -99,7 +115,8 @@ class SketchEngine:
               planner: Optional[QueryPlanner] = None, capacity: int = 1024,
               batch: int = 4096, mutable: bool = False, seal_rows: Optional[int] = None,
               ttl: Optional[float] = None, band_policy: Optional[BandPolicy] = None,
-              supervisor: Optional[JobSupervisor] = None) -> "SketchEngine":
+              supervisor: Optional[JobSupervisor] = None,
+              clock: Optional[Callable[[], float]] = None) -> "SketchEngine":
         """Create an engine on ``mapping``'s device; ``corpus_idx`` (C, P) is
         ingested if given, otherwise the engine starts empty and is fed via
         :meth:`add`. ``mutable=True`` builds over a :class:`SegmentedStore`;
@@ -109,7 +126,9 @@ class SketchEngine:
         queries scan only colliding buckets. ``supervisor`` governs
         background jobs and degraded modes (default: a fresh
         :class:`JobSupervisor` on the real clock; give it a ``ManualClock``
-        to drive backoff, deadlines and probation by hand)."""
+        to drive backoff, deadlines and probation by hand). ``clock`` is the
+        engine's and the mutable store's clock (and the default supervisor's):
+        queries without ``now`` resolve lazy TTL against it."""
         be = backends_mod.get_backend(backend)
         if (seal_rows is not None or ttl is not None
                 or band_policy is not None) and not mutable:
@@ -118,7 +137,7 @@ class SketchEngine:
                              "no sealed segments to band)")
         if mutable:
             kw = {"seal_rows": seal_rows, "ttl": ttl, "band_policy": band_policy,
-                  "supervisor": supervisor}
+                  "supervisor": supervisor, "clock": clock}
             if corpus_idx is not None:
                 store = SegmentedStore.from_indices(cfg, mapping, corpus_idx, backend=be,
                                                     batch=batch, **kw)
@@ -128,7 +147,7 @@ class SketchEngine:
             store = SketchStore.from_indices(cfg, mapping, corpus_idx, backend=be, batch=batch)
         else:
             store = SketchStore.create(cfg, mapping, capacity=capacity)
-        eng = cls(store, be, measure, planner or QueryPlanner())
+        eng = cls(store, be, measure, planner or QueryPlanner(), clock=clock)
         if supervisor is not None and not mutable:
             eng._own_supervisor = supervisor
         return eng
@@ -143,7 +162,7 @@ class SketchEngine:
         if sup is not None:
             return sup
         if self._own_supervisor is None:
-            self._own_supervisor = JobSupervisor()
+            self._own_supervisor = JobSupervisor(clock=self.clock)
         return self._own_supervisor
 
     def health(self) -> dict:
@@ -152,6 +171,75 @@ class SketchEngine:
         quarantines, degraded query-path components with their reasons, the
         last error and job latencies."""
         return self.supervisor.health()
+
+    def _injected_clock(self) -> Optional[Callable[[], float]]:
+        """The engine's clock, else the store's; None when neither has one."""
+        return self.clock if self.clock is not None else getattr(self.store, "clock", None)
+
+    def _auto_now(self, now: Optional[float]) -> Optional[float]:
+        """Explicit ``now`` wins; else the injected clock; else None."""
+        if now is not None:
+            return float(now)
+        c = self._injected_clock()
+        return float(c()) if c is not None else None
+
+    def enable_metrics(self, *, sample: int = 1, capacity: int = 64):
+        """Arm the telemetry plane (module-global, like ``faults``) on this
+        engine's clock; returns the fresh
+        :class:`~repro_torch.obs.metrics.MetricsRegistry`. Disarm with
+        ``obs.disable()``."""
+        return obs.enable(clock=self._injected_clock(), sample=sample, capacity=capacity)
+
+    def metrics(self, now: Optional[float] = None) -> dict:
+        """One JSON-safe telemetry snapshot: the armed registry's counters,
+        gauges and histograms (empty while disarmed), ``health`` (the
+        supervisor's), ``probe`` (the latest online recall reading),
+        ``lifecycle`` (per-segment live/tombstone/width/age/hits, width mix,
+        tombstone density, from host bookkeeping), and ``prefilter`` and
+        ``last_trace`` when there are any. Reads nothing off the device."""
+        now = self._auto_now(now)
+        reg = obs_metrics.active()
+        snap = (reg.snapshot() if reg is not None
+                else {"at": 0.0, "counters": {}, "gauges": {}, "histograms": {}})
+        out = {
+            "at": float(now) if now is not None else float(snap["at"]),
+            "armed": reg is not None,
+            "counters": snap["counters"],
+            "gauges": snap["gauges"],
+            "histograms": snap["histograms"],
+            "health": self.health(),
+            "probe": {
+                "recall": snap["gauges"].get("probe.recall"),
+                "at": snap["gauges"].get("probe.at"),
+                "runs": int(snap["counters"].get("probe.runs", 0)),
+            },
+        }
+        if isinstance(self.store, SegmentedStore):
+            out["lifecycle"] = self.store.lifecycle_snapshot(now=now)
+        else:
+            n = int(self.store.size)
+            out["lifecycle"] = {"segments": [], "head": None, "live_docs": n,
+                                "tombstone_density": 0.0,
+                                "width_mix": {str(self.cfg.n_bins): n} if n else {}}
+        if self.last_prefilter_stats is not None:
+            out["prefilter"] = dict(self.last_prefilter_stats)
+        col = obs_trace.active()
+        if col is not None:
+            out["last_trace"] = col.last()
+        return out
+
+    def _count_view_hits(self) -> None:
+        """One hit for every non-empty segment and the head, per exhaustive
+        scoring pass (the banded pass counts inline, since it skips
+        segments)."""
+        st = self.store
+        if not isinstance(st, SegmentedStore):
+            return
+        for seg in st.sealed:
+            if seg.n_rows:
+                seg.hits += 1
+        if st.head.size:
+            st.head_hits += 1
 
     @property
     def cfg(self) -> binsketch.BinSketchConfig:
@@ -290,26 +378,36 @@ class SketchEngine:
             got = cache[n_bins] = self.backend.rebucket(qs, self.cfg.n_bins, n_bins)
         return got
 
-    def _views_topk(self, qs: torch.Tensor, views, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _views_topk(self, qs: torch.Tensor, views, k: int, tr=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Streaming top-k over the segment views + k-slot merge; each view is
         scored at its own width."""
         if not views:
             return (torch.full((qs.shape[0], k), -math.inf, device=qs.device),
                     torch.full((qs.shape[0], k), -1, dtype=torch.int32, device=qs.device))
         width_cache: dict = {}
-        parts = [self._view_part(qs, v, k, width_cache) for v in views]
+        parts = [self._view_part(qs, v, k, width_cache, tr) for v in views]
         if len(parts) == 1:
             return parts[0]
-        return merge_segment_topk([p[0] for p in parts], [p[1] for p in parts], k)
+        t0 = tr.begin() if tr is not None else None
+        got = merge_segment_topk([p[0] for p in parts], [p[1] for p in parts], k)
+        if tr is not None:
+            tr.end("merge", t0)
+        return got
 
-    def _view_part(self, qs: torch.Tensor, v: SegmentView, k: int, width_cache: dict
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _view_part(self, qs: torch.Tensor, v: SegmentView, k: int, width_cache: dict,
+                   tr=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """One view's (Q, k) partial: ``Backend.topk`` at the view's width,
-        local rows mapped to global doc ids."""
+        local rows mapped to global doc ids. The width fold runs outside every
+        trace stage, as in the reference."""
         nb = v.n_bins if v.n_bins is not None else self.cfg.n_bins
         q_w = self._rebucket_queries(qs, nb, width_cache)
+        t0 = tr.begin() if tr is not None else None
         sc, ix = self.backend.topk(q_w, v.sketches, nb, self.measure, k,
                                    corpus_fills=v.fills, corpus_valid=v.valid)
+        if tr is not None:
+            tr.end("kernel_score", t0)
+            tr.note_width(nb)
         if v.ids is not None:
             ix = torch.where(ix >= 0, v.ids[ix.clamp_min(0).to(torch.int64)], ix)
         return sc, ix
@@ -330,7 +428,7 @@ class SketchEngine:
         return got[:rows]
 
     def _segment_candidates(self, seg: SealedSegment, qkeys: np.ndarray,
-                            now: Optional[float]) -> Optional[np.ndarray]:
+                            now: Optional[float], tr=None) -> Optional[np.ndarray]:
         """Live candidate rows of one indexed segment for the chunk, ascending;
         None when the escape hatch fires (the union outgrew
         ``max_candidate_frac`` of the segment, and the exhaustive scan is the
@@ -345,6 +443,8 @@ class SketchEngine:
             # a broken bucket lookup must not break the query: this segment
             # serves exhaustively and the degradation lands in health()
             self.supervisor.record_degraded("band_lookup", f"{e}")
+            if tr is not None:
+                tr.note_degraded("band_lookup")
             return None
         if len(cand):
             cand = cand[seg.valid[cand]]
@@ -358,11 +458,13 @@ class SketchEngine:
                 "prefilter_hatch",
                 f"candidate union {len(cand)}/{seg.n_rows} rows exceeded "
                 f"max_candidate_frac={store.band_policy.max_candidate_frac}")
+            if tr is not None:
+                tr.note_degraded("prefilter_hatch")
             return None
         return cand
 
     def _gathered_part(self, qs: torch.Tensor, seg: SealedSegment, cand: np.ndarray, k: int,
-                       width_cache: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+                       width_cache: dict, tr=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Top-k over a gather of one segment's candidate rows.
 
         The rows are padded to the planner's candidate bucket (a bounded set
@@ -374,15 +476,22 @@ class SketchEngine:
         path, width and fills)."""
         nb = seg.n_bins if seg.n_bins is not None else self.cfg.n_bins
         q_w = self._rebucket_queries(qs, nb, width_cache)
+        t0 = tr.begin() if tr is not None else None
         n = len(cand)
         padded = self.planner.candidate_bucket(n, seg.n_rows)
         rows_np = np.zeros(padded, np.int64)
         rows_np[:n] = cand
         rows = torch.from_numpy(rows_np).to(self.device)
+        sub, fills = seg.sketches.index_select(0, rows), seg.fills.index_select(0, rows)
         vmask = torch.from_numpy((np.arange(padded) < n).astype(np.int32)).to(self.device)
-        sc, ix = self.backend.topk(q_w, seg.sketches.index_select(0, rows), nb, self.measure,
-                                   k, corpus_fills=seg.fills.index_select(0, rows),
+        if tr is not None:
+            tr.end("candidate_gather", t0)
+            t0 = tr.begin()
+        sc, ix = self.backend.topk(q_w, sub, nb, self.measure, k, corpus_fills=fills,
                                    corpus_valid=vmask)
+        if tr is not None:
+            tr.end("kernel_score", t0)
+            tr.note_width(nb)
         gids = np.full(padded, -1, np.int32)
         gids[:n] = seg.ids[cand]
         gid_dev = torch.from_numpy(gids).to(self.device)
@@ -390,40 +499,50 @@ class SketchEngine:
 
     def _prefiltered_topk(self, qs: torch.Tensor, rows: int, k: int, *,
                           now: Optional[float], width_cache: dict, qkeys_cache: dict,
-                          stats: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+                          stats: dict, tr=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """One planner chunk, banded: indexed sealed segments score only their
         candidates; unindexed segments (below ``min_rows``, or sealed before
         the policy), escape-hatch segments and the head score in full. The
         parts merge under the one (score desc, id asc) order: the prefilter
-        changes which rows score, never how they score."""
+        changes which rows score, never how they score. Each scored segment,
+        and the head, counts a hit."""
         store: SegmentedStore = self.store
         parts_s, parts_i = [], []
-        for seg in store.sealed:
+        for seg_i, seg in enumerate(store.sealed):
             if seg.n_rows == 0:
                 continue
             if seg.band_index is None:
                 stats["unindexed_segments"] += 1
-                sc, ix = self._view_part(qs, seg.view(store.ttl, now), k, width_cache)
+                sc, ix = self._view_part(qs, seg.view(store.ttl, now), k, width_cache, tr)
             else:
                 nb = seg.n_bins if seg.n_bins is not None else self.cfg.n_bins
+                t0 = tr.begin() if tr is not None else None
                 qkeys = self._query_band_keys(qs, nb, rows, width_cache, qkeys_cache)
-                cand = self._segment_candidates(seg, qkeys, now)
+                cand = self._segment_candidates(seg, qkeys, now, tr)
+                if tr is not None:
+                    tr.end("band_lookup", t0)
                 stats["seg_rows"] += seg.n_rows
                 if cand is None:
                     stats["exhaustive_segments"] += 1
                     stats["cand_rows"] += seg.n_rows
-                    sc, ix = self._view_part(qs, seg.view(store.ttl, now), k, width_cache)
+                    if tr is not None:
+                        tr.note_segment(f"seg{seg_i}", seg.n_rows, seg.n_rows)
+                    sc, ix = self._view_part(qs, seg.view(store.ttl, now), k, width_cache, tr)
                 else:
                     stats["banded_segments"] += 1
                     stats["cand_rows"] += len(cand)
+                    if tr is not None:
+                        tr.note_segment(f"seg{seg_i}", seg.n_rows, len(cand))
                     if len(cand) == 0:
-                        continue  # nothing to score in this segment
-                    sc, ix = self._gathered_part(qs, seg, cand, k, width_cache)
+                        continue  # nothing scored: no hit for this segment
+                    sc, ix = self._gathered_part(qs, seg, cand, k, width_cache, tr)
+            seg.hits += 1  # scored in this pass
             parts_s.append(sc)
             parts_i.append(ix)
         hv = store.head_view(now)
         if hv is not None:  # head rows are unbanded: always scored
-            sc, ix = self._view_part(qs, hv, k, width_cache)
+            sc, ix = self._view_part(qs, hv, k, width_cache, tr)
+            store.head_hits += 1
             parts_s.append(sc)
             parts_i.append(ix)
         if not parts_s:
@@ -431,7 +550,11 @@ class SketchEngine:
                     torch.full((qs.shape[0], k), -1, dtype=torch.int32, device=qs.device))
         if len(parts_s) == 1:
             return parts_s[0], parts_i[0]
-        return merge_segment_topk(parts_s, parts_i, k)
+        t0 = tr.begin() if tr is not None else None
+        got = merge_segment_topk(parts_s, parts_i, k)
+        if tr is not None:
+            tr.end("merge", t0)
+        return got
 
     def _resolve_prefilter(self, prefilter: Optional[bool]) -> bool:
         on = isinstance(self.store, SegmentedStore) and self.store.band_policy is not None
@@ -456,7 +579,8 @@ class SketchEngine:
         per view; ids are global doc ids, stable across seal, compaction and
         distillation. If ``k`` exceeds the live corpus the tail slots hold
         score -inf / id -1. ``now`` is the query-time clock of lazy TTL expiry
-        on a mutable store with a ``ttl``.
+        on a mutable store with a ``ttl``; without it, the injected clock's
+        time (:meth:`_auto_now`).
 
         ``prefilter`` gates the banded prefilter: ``None`` turns it on when
         the store carries a band policy, ``False`` forces the exhaustive scan
@@ -469,36 +593,55 @@ class SketchEngine:
         if n_q == 0:
             return (torch.zeros((0, k), dtype=torch.float32, device=self.device),
                     torch.full((0, k), -1, dtype=torch.int32, device=self.device))
+        now = self._auto_now(now)
         if isinstance(self.store, SegmentedStore):
             self.store.poll_compaction()  # adopt a finished background job
         banded = self._resolve_prefilter(prefilter)
-        views = None if banded else self.store.segment_views(now=now)
-        stats = self._fresh_prefilter_stats() if banded else None
-        out_s, out_i = [], []
-        for chunk in self.planner.plan(n_q):
-            qs = self._padded_query_sketches(
-                query_idx[chunk.start : chunk.start + chunk.rows], chunk.padded)
+        obs_metrics.inc("query.calls")
+        obs_metrics.inc("query.rows", n_q)
+        tr = obs_trace.start("query", n_q, k, self.device)
+        try:
+            views = None if banded else self.store.segment_views(now=now)
+            stats = self._fresh_prefilter_stats() if banded else None
+            out_s, out_i = [], []
+            for chunk in self.planner.plan(n_q):
+                t0 = tr.begin() if tr is not None else None
+                qs = self._padded_query_sketches(
+                    query_idx[chunk.start : chunk.start + chunk.rows], chunk.padded)
+                if tr is not None:
+                    tr.end("rebucket", t0)
+                if banded:
+                    # per-chunk caches: the folded and hashed query blocks
+                    # belong to this chunk's rows
+                    try:
+                        sc, ix = self._prefiltered_topk(qs, chunk.rows, k, now=now,
+                                                        width_cache={}, qkeys_cache={},
+                                                        stats=stats, tr=tr)
+                    except Exception as e:
+                        # the prefilter is an accelerator: a failure degrades
+                        # this chunk to the exhaustive scan (same answers, more
+                        # rows), unless a kernel or its wrapper raised, or the
+                        # card
+                        if is_device_fault(e):
+                            raise
+                        self.supervisor.record_degraded("prefilter", f"{e}")
+                        if tr is not None:
+                            tr.note_degraded("prefilter")
+                        if views is None:
+                            views = self.store.segment_views(now=now)
+                        sc, ix = self._views_topk(qs, views, k, tr)
+                        self._count_view_hits()
+                else:
+                    sc, ix = self._views_topk(qs, views, k, tr)
+                    self._count_view_hits()
+                out_s.append(sc[: chunk.rows])
+                out_i.append(ix[: chunk.rows])
             if banded:
-                # per-chunk caches: the folded and hashed query blocks belong
-                # to this chunk's rows
-                try:
-                    sc, ix = self._prefiltered_topk(qs, chunk.rows, k, now=now,
-                                                    width_cache={}, qkeys_cache={},
-                                                    stats=stats)
-                except Exception as e:
-                    # the prefilter is an accelerator: a failure degrades this
-                    # chunk to the exhaustive scan (same answers, more rows),
-                    # unless a kernel or its wrapper raised, or the card
-                    if is_device_fault(e):
-                        raise
-                    self.supervisor.record_degraded("prefilter", f"{e}")
-                    if views is None:
-                        views = self.store.segment_views(now=now)
-                    sc, ix = self._views_topk(qs, views, k)
-            else:
-                sc, ix = self._views_topk(qs, views, k)
-            out_s.append(sc[: chunk.rows])
-            out_i.append(ix[: chunk.rows])
-        if banded:
-            self.last_prefilter_stats = stats
-        return torch.cat(out_s, dim=0), torch.cat(out_i, dim=0)
+                self.last_prefilter_stats = stats
+            if k > self.store.size:
+                obs_metrics.inc("query.k_overflow")
+                if tr is not None:
+                    tr.k_overflow = True
+            return torch.cat(out_s, dim=0), torch.cat(out_i, dim=0)
+        finally:
+            obs_trace.finish(tr)

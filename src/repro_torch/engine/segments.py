@@ -31,7 +31,11 @@ log-structured layout of the reference:
     sealed segment of at least ``min_rows`` rows gets a :class:`BandIndex`
     over its slab when it is made (seal, ``seal_sketches``, compaction,
     distillation), its keys hashed on the store's device through the
-    engine's backend, and the engine's queries scan only colliding buckets.
+    engine's backend, and the engine's queries scan only colliding buckets;
+  * **telemetry** on host bookkeeping: an injected ``clock`` (queries with
+    no ``now`` expire TTL by it; it is also the default supervisor's), a
+    ``hits`` count per sealed segment and ``head_hits`` for the head (bumped
+    by the engine's query paths), and :meth:`SegmentedStore.lifecycle_snapshot`.
 
 Invariants, as in the reference: ``_loc[gid] == (segment, row)`` for exactly
 the live docs; a row is retrievable iff ``valid and (ttl is None or now is
@@ -55,7 +59,7 @@ reference's on-disk layout.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -199,6 +203,11 @@ class SealedSegment:
     # candidates are dropped at query time against ``valid``), and every
     # rewrite makes a new segment with a fresh index
     band_index: Optional[BandIndex] = None
+    # query passes that scored this segment (one per planner chunk that
+    # scanned it; a banded pass with no candidates does not count). A host
+    # int, always on and outside the metrics registry, so it survives a
+    # registry swap; a rewrite (compaction, distillation) starts at 0
+    hits: int = 0
 
     def __post_init__(self):
         self._ids_dev: Optional[torch.Tensor] = None
@@ -427,6 +436,12 @@ class SegmentedStore:
     # arms the banded prefilter: sealed segments >= min_rows get a BandIndex
     # (the head stays unbanded and is always scored)
     band_policy: Optional[BandPolicy] = None
+    # the injected clock (None: callers pass ``now``): queries with no
+    # explicit ``now`` resolve lazy TTL against it, and ages read it
+    clock: Optional[Callable[[], float]] = None
+    # query passes that scored the head (the head's SealedSegment.hits; the
+    # head survives seals, so this counts over the store's whole life)
+    head_hits: int = 0
     _loc: Dict[int, Tuple[int, int]] = dataclasses.field(default_factory=dict)
     _n_live: int = 0
     _compaction: Optional[_CompactionJob] = dataclasses.field(default=None, repr=False)
@@ -439,20 +454,25 @@ class SegmentedStore:
     def create(cls, cfg: binsketch.BinSketchConfig, mapping: torch.Tensor,
                capacity: int = 1024, seal_rows: Optional[int] = None,
                ttl: Optional[float] = None, band_policy: Optional[BandPolicy] = None,
-               supervisor: Optional[JobSupervisor] = None) -> "SegmentedStore":
+               supervisor: Optional[JobSupervisor] = None,
+               clock: Optional[Callable[[], float]] = None) -> "SegmentedStore":
         head = _Head.create(cfg.n_bins, cfg.n_words, capacity, mapping.device)
+        # the store's clock is also its default supervisor's: one injected
+        # ManualClock drives TTL, ages, backoff and probation together
         return cls(cfg, mapping, [], head, seal_rows=seal_rows, ttl=ttl,
-                   band_policy=band_policy, supervisor=supervisor or JobSupervisor())
+                   band_policy=band_policy, clock=clock,
+                   supervisor=supervisor or JobSupervisor(clock=clock))
 
     @classmethod
     def from_indices(cls, cfg: binsketch.BinSketchConfig, mapping: torch.Tensor,
                      corpus_idx, *, backend=None, batch: int = 4096, now: float = 0.0,
                      seal_rows: Optional[int] = None, ttl: Optional[float] = None,
                      band_policy: Optional[BandPolicy] = None,
-                     supervisor: Optional[JobSupervisor] = None) -> "SegmentedStore":
+                     supervisor: Optional[JobSupervisor] = None,
+                     clock: Optional[Callable[[], float]] = None) -> "SegmentedStore":
         store = cls.create(cfg, mapping, capacity=max(int(corpus_idx.shape[0]), 1),
                            seal_rows=seal_rows, ttl=ttl, band_policy=band_policy,
-                           supervisor=supervisor)
+                           supervisor=supervisor, clock=clock)
         store.add(corpus_idx, backend=backend, batch=batch, now=now)
         return store
 
@@ -465,6 +485,13 @@ class SegmentedStore:
     def size(self) -> int:
         """Number of live (retrievable) documents."""
         return self._n_live
+
+    def resolve_now(self, now: Optional[float] = None) -> Optional[float]:
+        """Explicit ``now`` wins; else the injected clock; else None (no TTL
+        masking, ages unreported)."""
+        if now is not None:
+            return float(now)
+        return float(self.clock()) if self.clock is not None else None
 
     @property
     def sketches(self) -> torch.Tensor:
@@ -535,6 +562,47 @@ class SegmentedStore:
                     h._ttl_cache = ((now, self.ttl), mask.to(self.device))
                 valid_dev = h._ttl_cache[1]
         return SegmentView(h.packed[: h.size], h.fills[: h.size], ids_dev, valid_dev)
+
+    # ------------------------------------------------------------- telemetry
+    def lifecycle_snapshot(self, now: Optional[float] = None) -> dict:
+        """JSON-safe lifecycle gauges: per segment live/tombstone/width/age/
+        hits/banded, the width mix (live rows per sketch width), the head and
+        the store-wide tombstone density. Host bookkeeping only: nothing is
+        read off the device."""
+        now = self.resolve_now(now)
+        base = int(self.cfg.n_bins)
+        segs: List[dict] = []
+        rows_total = live_total = 0
+        width_mix: Dict[str, int] = {}
+        for i, s in enumerate(self.sealed):
+            w = int(s.n_bins) if s.n_bins is not None else base
+            live = s.n_live
+            ent = {"segment": i, "rows": int(s.n_rows), "live": int(live),
+                   "tombstones": int(s.n_rows - live), "width": w, "hits": int(s.hits),
+                   "banded": s.band_index is not None}
+            if now is not None and s.n_rows:
+                ent["age_min"] = float(now - s.born.max())
+                ent["age_max"] = float(now - s.born.min())
+            segs.append(ent)
+            rows_total += s.n_rows
+            live_total += live
+            width_mix[str(w)] = width_mix.get(str(w), 0) + int(live)
+        h = self.head
+        head_live = int(h.valid[: h.size].sum())
+        if h.size:
+            width_mix[str(base)] = width_mix.get(str(base), 0) + head_live
+        rows_total += h.size
+        live_total += head_live
+        return {
+            "segments": segs,
+            "head": {"rows": int(h.size), "live": head_live, "capacity": int(h.capacity),
+                     "hits": int(self.head_hits)},
+            "live_docs": int(self.size),
+            "next_id": int(self.next_id),
+            "tombstone_density": float(rows_total - live_total) / float(max(rows_total, 1)),
+            "width_mix": width_mix,
+            "compaction_running": self._compaction is not None,
+        }
 
     # ---------------------------------------------------------------- ingest
     def _count_rows(self, idx, backend) -> torch.Tensor:

@@ -113,6 +113,11 @@ class SupervisedJob:
     """One supervised background launch: a (re-launchable) work fn plus
     its retry/backoff/watchdog state. Construct via
     :meth:`JobSupervisor.submit`; advance via :meth:`JobSupervisor.poll`.
+    Each attempt is ``attempt(fn)``: by default a
+    :class:`~repro_torch.checkpoint.manager.BackgroundJob` (``fn`` on a
+    daemon thread); any object with its ``done()`` / ``error`` / ``value`` /
+    ``join()`` will do (the recall probe's ``StreamAttempt`` enqueues its
+    work on the card instead).
 
     ``result`` is valid only once ``state == "succeeded"``; ``error``
     holds the last attempt's exception once ``state == "failed"``."""
@@ -124,6 +129,7 @@ class SupervisedJob:
         fn: Callable[[], Any],
         policy: SupervisionPolicy,
         clock: Callable[[], float],
+        attempt: Callable[[Callable[[], Any]], Any] = BackgroundJob,
     ):
         self.op = op
         self.key = key
@@ -140,7 +146,8 @@ class SupervisedJob:
         self.attempt_started = self.launched_at
         self.finished_at: Optional[float] = None
         self._next_retry: Optional[float] = None  # set while backing off
-        self._job: Optional[BackgroundJob] = BackgroundJob(fn)
+        self._attempt = attempt
+        self._job = attempt(fn)
 
     @property
     def latency(self) -> Optional[float]:
@@ -252,10 +259,13 @@ class JobSupervisor:
             at, probing = ent
             return probing or self._clock() - at < self.policy.probation
 
-    def submit(self, op: str, key, fn: Callable[[], Any]) -> Optional[SupervisedJob]:
-        """Launch ``fn`` on a daemon thread under supervision; returns the
-        job, or None when ``(op, key)`` is quarantined (the caller keeps
-        its current state and moves on — refusal is not an error)."""
+    def submit(self, op: str, key, fn: Callable[[], Any],
+               attempt: Callable[[Callable[[], Any]], Any] = BackgroundJob
+               ) -> Optional[SupervisedJob]:
+        """Launch ``fn`` under supervision, each attempt as ``attempt(fn)``
+        (default: on a daemon thread); returns the job, or None when
+        ``(op, key)`` is quarantined (the caller keeps its current state and
+        moves on — refusal is not an error)."""
         nkey = self._norm_key(key)
         with self._lock:
             ent = self._quarantine.get((op, nkey))
@@ -266,7 +276,7 @@ class JobSupervisor:
                     return None
                 ent[1] = True  # probation over: admit exactly one probe
             self._count(op, "launched")
-        return SupervisedJob(op, nkey, fn, self.policy, self._clock)
+        return SupervisedJob(op, nkey, fn, self.policy, self._clock, attempt)
 
     def poll(self, job: Optional[SupervisedJob]) -> str:
         """Advance a job's state machine without blocking; returns
@@ -285,7 +295,7 @@ class JobSupervisor:
             job.attempts += 1
             job.retries += 1
             job.attempt_started = now
-            job._job = BackgroundJob(job.fn)
+            job._job = job._attempt(job.fn)
             with self._lock:
                 self._count(job.op, "retries")
             return RUNNING
@@ -421,7 +431,7 @@ class JobSupervisor:
             bg = job._job
             if bg is not None and job._next_retry is None \
                     and self.policy.deadline is None:
-                bg._thread.join()  # no watchdog: a plain join is exact
+                bg.join()  # no watchdog: a plain join is exact
             else:
                 time.sleep(poll_s)
 

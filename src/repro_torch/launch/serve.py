@@ -10,6 +10,8 @@
         --mutate-rate 0.3 --distill 212,106 --background-compact
     PYTHONPATH=src python -m repro_torch.launch.serve --dataset tiny --device cpu \\
         --chaos 0.3 --chaos-seed 1234
+    PYTHONPATH=src python -m repro_torch.launch.serve --dataset tiny --device cpu \\
+        --prefilter --probe 8 --stats-every 1 --metrics-json metrics.json
 
 ``repro.launch.serve`` on the port: generate the corpus, size N by Theorem 1,
 draw the Ψ table, stream the corpus into the store in ``--ingest-batch``
@@ -42,13 +44,19 @@ the background jobs, the band index's build and lookup and the checkpoint
 writes (torn leaves included), launches the compaction under it, saves
 asynchronously during the query loop, and reports the faults fired beside
 ``engine.health()`` and a restore that walks back to the newest checkpoint
-that verifies. All the work is in :func:`serve`; :func:`main` only reads the
-flags.
+that verifies. The telemetry plane is armed for the whole run (every query
+sampled): ``--metrics-json`` writes the final ``engine.metrics()`` snapshot,
+``--stats-every`` prints a registry summary every N batches, and ``--probe Q``
+runs the online recall probe over Q of the served queries, a gate with
+``--probe-baseline`` / ``--probe-tol``. All the work is in :func:`serve`;
+:func:`main` only reads the flags (and exits non-zero when the probe's gate
+fails).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import shutil
 import tempfile
 import time
@@ -57,13 +65,13 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import faults, resolve_device
+from .. import faults, obs, resolve_device
 from ..checkpoint.manager import CheckpointManager
 from ..core import BinSketchConfig, make_mapping
 from ..data.synthetic import DATASETS, DatasetSpec, generate_corpus
 from ..engine import (BandPolicy, DistillPolicy, JobSupervisor, QueryPlanner, SegmentedStore,
                       SketchEngine, SupervisionPolicy)
-from ..obs.probe import exact_topk
+from ..obs.probe import RecallProbe, exact_topk
 
 __all__ = ["main", "recall_at", "serve"]
 
@@ -75,7 +83,7 @@ def _sync(device: torch.device) -> None:
 
 def _serve_queries(engine: SketchEngine, q_rows: np.ndarray, topk: int, batch: int,
                    now: Optional[float], maintain: Optional[Callable[[int], None]] = None,
-                   on_batch: Optional[Callable] = None):
+                   on_batch: Optional[Callable] = None, stats_every: int = 0):
     """Query ``q_rows`` in batches; returns (scores, ids) as numpy, seconds and
     the number of batches served while a background job was pending.
 
@@ -83,7 +91,8 @@ def _serve_queries(engine: SketchEngine, q_rows: np.ndarray, topk: int, batch: i
     heartbeat of a server: it launches background jobs and saves);
     ``on_batch(engine, rows, scores, ids, pending, now)`` sees each batch's
     answer right after it is served, with the op of the job then pending (or
-    None) and the query clock, before anything else touches the store."""
+    None) and the query clock, before anything else touches the store. Every
+    ``stats_every`` batches a ``stats:`` line summarises the armed registry."""
     t0 = time.perf_counter()
     all_s, all_i = [], []
     pending_batches = 0
@@ -97,9 +106,24 @@ def _serve_queries(engine: SketchEngine, q_rows: np.ndarray, topk: int, batch: i
             on_batch(engine, q_rows[s : s + batch], sc, ids, pending, now)
         all_s.append(sc)
         all_i.append(ids)
+        if stats_every and (bi + 1) % stats_every == 0:
+            _print_stats(bi)
     ids = torch.cat(all_i).cpu().numpy()  # the copy waits for the device
     seconds = time.perf_counter() - t0
     return torch.cat(all_s).cpu().numpy(), ids, seconds, pending_batches
+
+
+def _print_stats(bi: int) -> None:
+    """One line of the armed registry: calls, rows, query latency p50/p99,
+    mean candidate fraction and degraded counts."""
+    snap = obs.metrics.active().snapshot()
+    qh = snap["histograms"].get("query.query_s", {})
+    cf = snap["histograms"].get("query.candidate_frac", {})
+    deg = sum(v for k, v in snap["counters"].items() if k.startswith("degraded."))
+    print(f"stats: batch {bi + 1}: calls={snap['counters'].get('query.calls', 0)} "
+          f"rows={snap['counters'].get('query.rows', 0)} "
+          f"p50={qh.get('p50', 0.0) * 1e3:.1f}ms p99={qh.get('p99', 0.0) * 1e3:.1f}ms "
+          f"cand_frac={cf.get('mean', float('nan')):.3f} degraded={deg}")
 
 
 def _chaos_plan(rate: float, seed: int) -> "faults.FaultPlan":
@@ -147,7 +171,9 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
           ttl: Optional[float] = None, distill: Optional[Sequence[int]] = None,
           distill_age: Optional[float] = None, prefilter: bool = False,
           bands: int = 8, background_compact: bool = False, chaos: Optional[float] = None,
-          chaos_seed: int = 1234, on_batch: Optional[Callable] = None) -> dict:
+          chaos_seed: int = 1234, on_batch: Optional[Callable] = None,
+          metrics_json: Optional[str] = None, stats_every: int = 0, probe: int = 0,
+          probe_baseline: Optional[float] = None, probe_tol: float = 0.02) -> dict:
     """Build a store over ``spec``'s corpus (seed 0), optionally mutate and
     distill it, serve ``queries`` surviving docs (seed 1) in batches of
     ``batch``, and check recall@``topk``.
@@ -164,7 +190,16 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
     serving; ``chaos`` adds the seeded fault plan and the checkpoints (see the
     module docstring) and ``out["chaos"]`` the report; ``out["health"]`` is
     ``engine.health()`` at the end. ``on_batch`` is handed to every query
-    loop (:func:`_serve_queries`)."""
+    loop (:func:`_serve_queries`).
+
+    The telemetry plane is armed for the run (``engine.enable_metrics()``)
+    and disarmed on return; ``out["metrics"]`` is the final
+    ``engine.metrics()`` snapshot, which ``metrics_json`` also writes as
+    JSON. ``stats_every`` prints a registry summary every that many batches.
+    ``probe`` runs the online recall probe over up to that many served
+    queries after serving; ``out["probe"]`` holds its reading and ``ok``,
+    False when the reading is missing or outside ``probe_tol`` of
+    ``probe_baseline``."""
     dev = resolve_device(device)
     idx, lens = generate_corpus(spec, seed=0)
     n = idx.shape[0]
@@ -198,176 +233,218 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
         band_policy=(BandPolicy(n_bands=bands, min_rows=64 if chaos else 256)
                      if prefilter else None),
         supervisor=supervisor)
-    if prefilter:
-        pol = engine.store.band_policy
-        print(f"prefilter: {pol.n_bands} bands, escape hatch at "
-              f"{pol.max_candidate_frac:.0%} candidates, segments under "
-              f"{pol.min_rows} rows stay unindexed")
+    # arm the telemetry plane for the run (registry + sampled traces): every
+    # query below lands in the stage histograms, and the report reads one
+    # snapshot; disarmed on return, so nothing leaks past the run
+    engine.enable_metrics()
+    try:
+        if prefilter:
+            pol = engine.store.band_policy
+            print(f"prefilter: {pol.n_bands} bands, escape hatch at "
+                  f"{pol.max_candidate_frac:.0%} candidates, segments under "
+                  f"{pol.min_rows} rows stay unindexed")
 
-    t0 = time.perf_counter()
-    tick = 0  # the lifecycle clock: one tick per ingest batch
-    born = {}
-    for s in range(0, n, ingest_batch):  # streaming ingest
-        ids = engine.add(idx[s : s + ingest_batch], batch=ingest_batch, now=float(tick))
+        t0 = time.perf_counter()
+        tick = 0  # the lifecycle clock: one tick per ingest batch
+        born = {}
+        for s in range(0, n, ingest_batch):  # streaming ingest
+            ids = engine.add(idx[s : s + ingest_batch], batch=ingest_batch, now=float(tick))
+            if mutable:
+                born.update(dict.fromkeys(ids, tick))
+            tick += 1
+        _sync(dev)
+        t_build = time.perf_counter() - t0
+        print(f"build: {t_build:.2f}s ({n / t_build:.0f} docs/s, "
+              f"backend={engine.backend.name}, device={dev}, fill cache primed at ingest)")
+        out = {"n_docs": n, "n_bins": cfg.n_bins, "n_words": cfg.n_words,
+               "build_s": t_build, "docs_per_s": n / t_build}
+
+        serve_now = None
         if mutable:
-            born.update(dict.fromkeys(ids, tick))
-        tick += 1
-    _sync(dev)
-    t_build = time.perf_counter() - t0
-    print(f"build: {t_build:.2f}s ({n / t_build:.0f} docs/s, "
-          f"backend={engine.backend.name}, device={dev}, fill cache primed at ingest)")
-    out = {"n_docs": n, "n_bins": cfg.n_bins, "n_words": cfg.n_words,
-           "build_s": t_build, "docs_per_s": n / t_build}
+            # content per live doc id, kept in step with every mutation, so that
+            # the exact ground truth covers the surviving catalog
+            contents = dict(enumerate(idx))
+            rng = np.random.default_rng(7)
+            n_mut = int(round(mutate_rate * n))
+            victims = rng.choice(n, n_mut, replace=False) if n_mut else np.array([], int)
+            dele, upd = victims[: n_mut // 2], victims[n_mut // 2 :]
+            fresh_idx, _ = generate_corpus(spec, seed=1)
 
-    serve_now = None
-    if mutable:
-        # content per live doc id, kept in step with every mutation, so that
-        # the exact ground truth covers the surviving catalog
-        contents = dict(enumerate(idx))
-        rng = np.random.default_rng(7)
-        n_mut = int(round(mutate_rate * n))
-        victims = rng.choice(n, n_mut, replace=False) if n_mut else np.array([], int)
-        dele, upd = victims[: n_mut // 2], victims[n_mut // 2 :]
-        fresh_idx, _ = generate_corpus(spec, seed=1)
-
-        t0 = time.perf_counter()
-        engine.seal()  # freeze the build; deletions hit tombstone bitmaps
-        if len(dele):
-            engine.delete(dele.tolist())
-        if len(upd):
-            engine.update(upd.tolist(), fresh_idx[upd], now=float(tick))
-        engine.seal()
-        # in the background the compaction launches just before serving (and
-        # under chaos after the plan arms, so that its faults hit the merge)
-        stats = None if background else engine.compact()
-        _sync(dev)
-        t_mut = time.perf_counter() - t0
-        for g in dele:
-            contents.pop(int(g))
-            born.pop(int(g))
-        for g in upd:
-            contents[int(g)] = fresh_idx[g]
-            born[int(g)] = tick
-        compacted = (f"compacted {stats['rows_in']}->{stats['rows_out']} rows" if stats
-                     else "compaction to run in the background")
-        print(f"mutate: {len(dele)} deleted, {len(upd)} updated, sealed + {compacted} in "
-              f"{t_mut:.2f}s ({n_mut / max(t_mut, 1e-9):.0f} mutations/s); "
-              f"live={engine.store.size}")
-        out.update(n_deleted=len(dele), n_updated=len(upd), mutate_s=t_mut,
-                   mutations_per_s=n_mut / max(t_mut, 1e-9))
-
-        serve_now = float(tick + 1)
-        if ttl is not None:  # lazily expired docs leave the catalog too
-            dead = [g for g, b in born.items() if b + ttl <= serve_now]
-            for g in dead:
-                contents.pop(g)
-                born.pop(g)
-            print(f"ttl: {len(dead)} docs older than {ttl} ticks at serve time "
-                  f"(now={serve_now}) masked lazily — no sweep ran")
-        surv_ids = np.asarray(sorted(contents))
-        surv_rows = np.stack([contents[int(g)] for g in surv_ids])
-    else:  # no mutation phase: the catalog is the corpus, verbatim
-        surv_ids, surv_rows = np.arange(n), idx
-
-    rng = np.random.default_rng(1)
-    n_queries = min(queries, len(surv_ids))
-    if n_queries < queries:
-        print(f"(clamping queries {queries} -> {n_queries}: only {len(surv_ids)} docs "
-              "survive the mutation phase)")
-    q_pick = rng.choice(len(surv_ids), n_queries, replace=False)
-    q_rows = surv_rows[q_pick]
-    truth_ids = surv_ids[exact_topk(surv_rows, q_rows, topk, device=dev)]
-
-    mgr = plan = None
-    saves = 0
-    if chaos:
-        ckpt_dir = tempfile.mkdtemp(prefix="repro-torch-chaos-ckpt-")
-        mgr = CheckpointManager(ckpt_dir, keep=8, supervisor=engine.supervisor)
-        # one clean generation before the plan arms: the walk-back at the end
-        # has a verifying floor to land on however many later saves tear
-        engine.store.save(mgr, step=1, blocking=True)
-        saves = 1
-        plan = faults.install(_chaos_plan(min(chaos, 1.0), chaos_seed))
-        print(f"chaos: plan armed at rate={min(chaos, 1.0)} seed={chaos_seed}; "
-              f"checkpoints in {ckpt_dir}")
-    if background:
-        engine.compact(background=True)
-
-    # the background ladder: a pass launches whenever no job is pending;
-    # ladder["policy"] goes None once nothing more is eligible
-    ladder = {"policy": None, "passes": 0}
-
-    def maintain(bi: int) -> None:
-        nonlocal saves
-        engine.poll_compaction()
-        pol = ladder["policy"]
-        if pol is not None and engine.store.job_pending is None:
-            if engine.distill(pol, now=float(tick), background=True):
-                ladder["passes"] += 1
-            else:
-                ladder["policy"] = None
-        if chaos and bi in (1, 3, 5):  # asynchronous saves under fire
-            saves += 1
-            engine.store.save(mgr, step=saves, blocking=False)
-
-    heartbeat = maintain if background else None
-    if distill:
-        sc, ids, t_serve, _ = _serve_queries(engine, q_rows, topk, batch, serve_now,
-                                             heartbeat, on_batch)
-        recall = recall_at(ids, truth_ids, topk)
-        print(f"recall@{topk} vs exact Jaccard over survivors, before distillation: "
-              f"{recall:.3f}")
-        out["pre_distill"] = {"recall": recall, "scores": sc, "ids": ids, "serve_s": t_serve,
-                              "queries_per_s": n_queries / t_serve,
-                              "segments": list(engine.store.sealed)}
-        policy = DistillPolicy(widths=tuple(int(w) for w in distill), min_age=distill_age)
-        t0 = time.perf_counter()
-        if background:
-            ladder["policy"] = policy
-        else:
-            n_tiers = 0  # one pass per tier; None once nothing is eligible
-            while engine.distill(policy, now=float(tick)):
-                n_tiers += 1
+            t0 = time.perf_counter()
+            engine.seal()  # freeze the build; deletions hit tombstone bitmaps
+            if len(dele):
+                engine.delete(dele.tolist())
+            if len(upd):
+                engine.update(upd.tolist(), fresh_idx[upd], now=float(tick))
+            engine.seal()
+            # in the background the compaction launches just before serving (and
+            # under chaos after the plan arms, so that its faults hit the merge)
+            stats = None if background else engine.compact()
             _sync(dev)
-            out.update(distill_s=time.perf_counter() - t0, n_tiers=n_tiers)
-            _report_distill(engine, out, background)
+            t_mut = time.perf_counter() - t0
+            for g in dele:
+                contents.pop(int(g))
+                born.pop(int(g))
+            for g in upd:
+                contents[int(g)] = fresh_idx[g]
+                born[int(g)] = tick
+            compacted = (f"compacted {stats['rows_in']}->{stats['rows_out']} rows" if stats
+                         else "compaction to run in the background")
+            print(f"mutate: {len(dele)} deleted, {len(upd)} updated, sealed + {compacted} in "
+                  f"{t_mut:.2f}s ({n_mut / max(t_mut, 1e-9):.0f} mutations/s); "
+                  f"live={engine.store.size}")
+            out.update(n_deleted=len(dele), n_updated=len(upd), mutate_s=t_mut,
+                       mutations_per_s=n_mut / max(t_mut, 1e-9))
 
-    sc, ids, t_serve, pending_batches = _serve_queries(engine, q_rows, topk, batch, serve_now,
-                                                       heartbeat, on_batch)
-    print(f"serve: {n_queries} queries in {t_serve:.2f}s "
-          f"({n_queries / t_serve:.0f} q/s, batch={batch})")
-    if background:
-        # drain: the pending job, then the rest of the ladder, one pass at a
-        # time (a failed pass ends it, as in the synchronous loop)
-        engine.wait_compaction()
-        if ladder["policy"] is not None:
-            while engine.distill(ladder["policy"], now=float(tick)):
-                ladder["passes"] += 1
-        _sync(dev)
-        print(f"background: {pending_batches} query batch(es) served while a job was "
-              f"pending; {ladder['passes']} distillation pass(es)")
-        out["pending_batches"] = pending_batches
+            serve_now = float(tick + 1)
+            if ttl is not None:  # lazily expired docs leave the catalog too
+                dead = [g for g, b in born.items() if b + ttl <= serve_now]
+                for g in dead:
+                    contents.pop(g)
+                    born.pop(g)
+                print(f"ttl: {len(dead)} docs older than {ttl} ticks at serve time "
+                      f"(now={serve_now}) masked lazily — no sweep ran")
+            surv_ids = np.asarray(sorted(contents))
+            surv_rows = np.stack([contents[int(g)] for g in surv_ids])
+        else:  # no mutation phase: the catalog is the corpus, verbatim
+            surv_ids, surv_rows = np.arange(n), idx
+
+        rng = np.random.default_rng(1)
+        n_queries = min(queries, len(surv_ids))
+        if n_queries < queries:
+            print(f"(clamping queries {queries} -> {n_queries}: only {len(surv_ids)} docs "
+                  "survive the mutation phase)")
+        q_pick = rng.choice(len(surv_ids), n_queries, replace=False)
+        q_rows = surv_rows[q_pick]
+        truth_ids = surv_ids[exact_topk(surv_rows, q_rows, topk, device=dev)]
+
+        mgr = plan = None
+        saves = 0
+        if chaos:
+            ckpt_dir = tempfile.mkdtemp(prefix="repro-torch-chaos-ckpt-")
+            mgr = CheckpointManager(ckpt_dir, keep=8, supervisor=engine.supervisor)
+            # one clean generation before the plan arms: the walk-back at the end
+            # has a verifying floor to land on however many later saves tear
+            engine.store.save(mgr, step=1, blocking=True)
+            saves = 1
+            plan = faults.install(_chaos_plan(min(chaos, 1.0), chaos_seed))
+            print(f"chaos: plan armed at rate={min(chaos, 1.0)} seed={chaos_seed}; "
+                  f"checkpoints in {ckpt_dir}")
+        if background:
+            engine.compact(background=True)
+
+        # the background ladder: a pass launches whenever no job is pending;
+        # ladder["policy"] goes None once nothing more is eligible
+        ladder = {"policy": None, "passes": 0}
+
+        def maintain(bi: int) -> None:
+            nonlocal saves
+            engine.poll_compaction()
+            pol = ladder["policy"]
+            if pol is not None and engine.store.job_pending is None:
+                if engine.distill(pol, now=float(tick), background=True):
+                    ladder["passes"] += 1
+                else:
+                    ladder["policy"] = None
+            if chaos and bi in (1, 3, 5):  # asynchronous saves under fire
+                saves += 1
+                engine.store.save(mgr, step=saves, blocking=False)
+
+        heartbeat = maintain if background else None
         if distill:
-            out.update(distill_s=time.perf_counter() - t0, n_tiers=ladder["passes"])
-            _report_distill(engine, out, background)
-    if chaos:
-        out["chaos"] = _chaos_report(engine, mgr, plan, saves, dev)
-    recall = recall_at(ids, truth_ids, topk)
-    print(f"recall@{topk} vs exact Jaccard" + (" over survivors" if mutable else "")
-          + f": {recall:.3f}")
-    if prefilter and engine.last_prefilter_stats is not None:
-        st = engine.last_prefilter_stats
-        frac = st["cand_rows"] / max(st["seg_rows"], 1)
-        print(f"prefilter: {st['banded_segments']} banded / {st['exhaustive_segments']} "
-              f"escape-hatch / {st['unindexed_segments']} unindexed segment scan(s) on the "
-              f"last batch; candidate fraction {frac:.4f}")
-        out["prefilter_stats"] = dict(st)
-    out["health"] = engine.health()
-    out.update(recall=recall, serve_s=t_serve, queries_per_s=n_queries / t_serve,
-               engine=engine, corpus=idx, surv_ids=surv_ids, surv_rows=surv_rows,
-               queries=q_rows, query_ids=surv_ids[q_pick], truth_ids=truth_ids, scores=sc,
-               ids=ids, serve_now=serve_now)
-    return out
+            sc, ids, t_serve, _ = _serve_queries(engine, q_rows, topk, batch, serve_now,
+                                                 heartbeat, on_batch, stats_every)
+            recall = recall_at(ids, truth_ids, topk)
+            print(f"recall@{topk} vs exact Jaccard over survivors, before distillation: "
+                  f"{recall:.3f}")
+            out["pre_distill"] = {"recall": recall, "scores": sc, "ids": ids, "serve_s": t_serve,
+                                  "queries_per_s": n_queries / t_serve,
+                                  "segments": list(engine.store.sealed)}
+            policy = DistillPolicy(widths=tuple(int(w) for w in distill), min_age=distill_age)
+            t0 = time.perf_counter()
+            if background:
+                ladder["policy"] = policy
+            else:
+                n_tiers = 0  # one pass per tier; None once nothing is eligible
+                while engine.distill(policy, now=float(tick)):
+                    n_tiers += 1
+                _sync(dev)
+                out.update(distill_s=time.perf_counter() - t0, n_tiers=n_tiers)
+                _report_distill(engine, out, background)
+
+        sc, ids, t_serve, pending_batches = _serve_queries(engine, q_rows, topk, batch, serve_now,
+                                                           heartbeat, on_batch, stats_every)
+        print(f"serve: {n_queries} queries in {t_serve:.2f}s "
+              f"({n_queries / t_serve:.0f} q/s, batch={batch})")
+        if background:
+            # drain: the pending job, then the rest of the ladder, one pass at a
+            # time (a failed pass ends it, as in the synchronous loop)
+            engine.wait_compaction()
+            if ladder["policy"] is not None:
+                while engine.distill(ladder["policy"], now=float(tick)):
+                    ladder["passes"] += 1
+            _sync(dev)
+            print(f"background: {pending_batches} query batch(es) served while a job was "
+                  f"pending; {ladder['passes']} distillation pass(es)")
+            out["pending_batches"] = pending_batches
+            if distill:
+                out.update(distill_s=time.perf_counter() - t0, n_tiers=ladder["passes"])
+                _report_distill(engine, out, background)
+        if chaos:
+            out["chaos"] = _chaos_report(engine, mgr, plan, saves, dev)
+        if probe:
+            out["probe"] = _run_probe(engine, probe, topk, surv_ids, surv_rows, q_rows,
+                                      serve_now, probe_baseline, probe_tol)
+        recall = recall_at(ids, truth_ids, topk)
+        print(f"recall@{topk} vs exact Jaccard" + (" over survivors" if mutable else "")
+              + f": {recall:.3f}")
+        snap = engine.metrics(now=serve_now)  # one snapshot feeds the rest of the report
+        if prefilter and snap.get("prefilter") is not None:
+            st = snap["prefilter"]
+            frac = st["cand_rows"] / max(st["seg_rows"], 1)
+            print(f"prefilter: {st['banded_segments']} banded / {st['exhaustive_segments']} "
+                  f"escape-hatch / {st['unindexed_segments']} unindexed segment scan(s) on the "
+                  f"last batch; candidate fraction {frac:.4f}")
+            out["prefilter_stats"] = dict(st)
+        if metrics_json:
+            with open(metrics_json, "w") as f:
+                json.dump(snap, f, indent=2, sort_keys=True)
+            print(f"metrics: snapshot written to {metrics_json} ({len(snap['counters'])} "
+                  f"counters, {len(snap['histograms'])} histograms, "
+                  f"{len(snap['lifecycle']['segments'])} segment(s))")
+        out.update(metrics=snap, health=snap["health"], recall=recall, serve_s=t_serve,
+                   queries_per_s=n_queries / t_serve, engine=engine, corpus=idx,
+                   surv_ids=surv_ids, surv_rows=surv_rows, queries=q_rows,
+                   query_ids=surv_ids[q_pick], truth_ids=truth_ids, scores=sc, ids=ids,
+                   serve_now=serve_now)
+        return out
+    finally:
+        obs.disable()
+
+
+def _run_probe(engine: SketchEngine, sample: int, topk: int, surv_ids, surv_rows, q_rows,
+               now: Optional[float], baseline: Optional[float], tol: float) -> dict:
+    """The online recall probe over up to ``sample`` of the served queries,
+    waited for; with ``baseline``, a gate of ``|recall - baseline| <= tol``.
+    Returns the reading and whether the gate held (``ok``)."""
+    pr = RecallProbe(engine, k=topk, sample=sample, seed=0)
+    if not pr.launch(surv_ids, surv_rows, queries=q_rows):
+        print("probe: launch refused (op quarantined) — no reading")
+        return {"recall": None, "ok": baseline is None}
+    got = pr.wait(now=now)
+    if got is None:
+        print("probe: ground-truth job failed — no reading")
+        return {"recall": None, "ok": baseline is None}
+    where = "a side stream of the card" if engine.device.type == "cuda" else "the CPU"
+    print(f"probe: recall@{pr.k} = {got:.3f} over {min(sample, len(q_rows))} queries "
+          f"(ground truth supervised, on {where}; gauge probe.recall)")
+    ok = True
+    if baseline is not None:
+        delta = abs(got - baseline)
+        ok = delta <= tol
+        print(f"probe: |reading - baseline {baseline:.3f}| = {delta:.3f} "
+              f"{'<=' if ok else '>'} tol {tol}" + ("" if ok else " — GATE FAILED"))
+    return {"recall": got, "ok": ok}
 
 
 def _chaos_report(engine: SketchEngine, mgr: CheckpointManager, plan, saves: int,
@@ -440,6 +517,19 @@ def main(argv=None):
                          "--mutate-rate 0.3")
     ap.add_argument("--chaos-seed", type=int, default=1234,
                     help="the fault plan's seed for --chaos")
+    ap.add_argument("--metrics-json", default=None, metavar="PATH",
+                    help="write the final SketchEngine.metrics() snapshot to this file as JSON")
+    ap.add_argument("--stats-every", type=int, default=0, metavar="N",
+                    help="print a one-line telemetry summary every N query batches (0: off)")
+    ap.add_argument("--probe", type=int, default=0, metavar="Q",
+                    help="after serving, run the online recall probe over up to Q of the "
+                         "served queries (ground truth supervised, on the card's side stream "
+                         "or the CPU) and report the probe.recall gauge (0: off)")
+    ap.add_argument("--probe-baseline", type=float, default=None,
+                    help="expected probe recall; with --probe-tol a gate: nonzero exit when "
+                         "the reading is missing or further than the tolerance from it")
+    ap.add_argument("--probe-tol", type=float, default=0.02,
+                    help="allowed |probe recall - baseline| for --probe-baseline")
     args = ap.parse_args(argv)
     widths = (tuple(int(w) for w in args.distill.split(",") if w)
               if args.distill else None)
@@ -449,7 +539,11 @@ def main(argv=None):
                 seal_rows=args.seal_rows, ttl=args.ttl, distill=widths,
                 distill_age=args.distill_age, prefilter=args.prefilter, bands=args.bands,
                 background_compact=args.background_compact, chaos=args.chaos,
-                chaos_seed=args.chaos_seed)
+                chaos_seed=args.chaos_seed, metrics_json=args.metrics_json,
+                stats_every=args.stats_every, probe=args.probe,
+                probe_baseline=args.probe_baseline, probe_tol=args.probe_tol)
+    if args.probe and not out["probe"]["ok"]:
+        raise SystemExit("probe recall gate failed (see 'probe:' lines above)")
     return out["recall"]
 
 

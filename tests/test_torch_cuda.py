@@ -292,3 +292,70 @@ def test_background_compaction_and_checkpoint_on_the_card(dev, tmp_path):
     again = SketchEngine(back, eng.backend).query(q, 10)
     assert torch.equal(again[0], want[0]) and torch.equal(again[1], want[1])
     assert eng.health()["degraded"] == []
+
+
+def _banded_engine(dev, n=96, seal_rows=24):
+    """A mutable ``cuda`` engine over the first ``n`` tiny-corpus rows, sealed
+    into banded segments of ``seal_rows``; with the corpus."""
+    from repro_torch.core import BinSketchConfig, make_mapping
+    from repro_torch.data.synthetic import DATASETS, generate_corpus
+    from repro_torch.engine import BandPolicy, SketchEngine
+
+    spec = DATASETS["tiny"]
+    idx, lens = generate_corpus(spec, seed=0)
+    cfg = BinSketchConfig.from_sparsity(spec.d, int(lens.max()), 0.05)
+    eng = SketchEngine.build(cfg, make_mapping(cfg, seed=0, device=dev), backend="cuda",
+                             mutable=True, seal_rows=seal_rows,
+                             band_policy=BandPolicy(n_bands=8, min_rows=8,
+                                                    max_candidate_frac=1.0))
+    for s in range(0, n, seal_rows):
+        eng.add(idx[s : s + seal_rows])
+    return eng, idx
+
+
+def test_traces_time_stages_with_events_on_the_card(dev):
+    """A sampled banded query answers bit-equal to the disarmed one and
+    reports every stage with a positive duration from its CUDA events."""
+    from repro_torch import obs
+
+    eng, idx = _banded_engine(dev)
+    rows = idx[[0, 10, 30, 50, 70, 90]]
+    off = eng.query(rows, 5)
+    reg = obs.enable()
+    try:
+        on = eng.query(rows, 5)
+        tr = obs.trace.active().last()
+    finally:
+        obs.disable()
+    assert torch.equal(off[0], on[0]) and torch.equal(off[1], on[1])
+    assert list(tr["stages_s"]) == list(obs.STAGES)
+    assert all(v > 0.0 for v in tr["stages_s"].values())
+    assert reg.counter("query.calls") == 1
+
+
+def test_probe_truth_on_a_side_stream(dev):
+    """The probe's ground truth on a side stream of the card is the CPU's
+    exact top-k, its reading the recall of the engine's own answers against
+    it, and it starts no thread."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch import obs
+
+    eng, idx = _banded_engine(dev)
+    before = set(threading.enumerate())
+    obs.enable()
+    try:
+        pr = obs.RecallProbe(eng, k=5, sample=16, seed=3)
+        assert pr.launch(np.arange(96), idx[:96])
+        assert set(threading.enumerate()) <= before
+        got = pr.wait()
+    finally:
+        obs.disable()
+    queries = idx[:96][np.random.default_rng(3).choice(96, 16, replace=False)]
+    truth = obs.exact_topk(idx[:96], queries, 5, device="cpu")
+    np.testing.assert_array_equal(obs.exact_topk(idx[:96], queries, 5, device=dev), truth)
+    ids = eng.query(queries, 5)[1].cpu().numpy()
+    assert got == sum(len(set(ids[i].tolist()) & set(truth[i].tolist()))
+                      for i in range(16)) / (16 * 5)

@@ -48,7 +48,8 @@ def test_port_imports_without_cuda_and_default_raises(monkeypatch):
     for new in ("repro_torch.engine.banding", "repro_torch.hopper.band_hash",
                 "repro_torch.hopper.hash_build", "repro_torch.faults",
                 "repro_torch.obs.clock", "repro_torch.obs.metrics",
-                "repro_torch.engine.supervision", "repro_torch.checkpoint.manager"):
+                "repro_torch.engine.supervision", "repro_torch.checkpoint.manager",
+                "repro_torch.obs.trace", "repro_torch.obs.probe"):
         assert new in names
 
     import repro_torch

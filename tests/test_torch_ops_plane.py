@@ -594,7 +594,8 @@ def test_port_workers_own_only_their_snapshots():
     exactly that cell, so it does see the workers)."""
     allow = {("src/repro_torch/checkpoint/manager.py", "BackgroundJob.__init__.run")}
     for rel in ("src/repro_torch/engine/segments.py", "src/repro_torch/engine/supervision.py",
-                "src/repro_torch/checkpoint/manager.py"):
+                "src/repro_torch/checkpoint/manager.py", "src/repro_torch/obs/probe.py",
+                "src/repro_torch/obs/trace.py"):
         assert ownership.check_file(str(REPO / rel), rel, allowlist=allow) == [], rel
     rel = "src/repro_torch/checkpoint/manager.py"
     got = ownership.check_file(str(REPO / rel), rel, allowlist=set())
@@ -604,13 +605,18 @@ def test_port_workers_own_only_their_snapshots():
 
 def test_port_engine_and_checkpoint_swallow_no_exception():
     """``swallowed-exception`` scans only the reference's engine and
-    checkpoint directories; each port file of those layers is run through it
-    under the matching path, and a seeded swallow is caught the same way."""
+    checkpoint directories; each port file of those layers, and the probe and
+    trace of the telemetry plane (which catch on the query and supervision
+    paths too), is run through it under a path in its scope, and a seeded
+    swallow is caught the same way."""
     files = sorted((PORT / "engine").glob("*.py")) + sorted((PORT / "checkpoint").glob("*.py"))
     assert len(files) >= 9
     for path in files:
         rel = "src/repro/" + path.relative_to(PORT).as_posix()
         assert list(check_swallowed_exception(_ctx(path, rel))) == [], path.name
+    for name in ("probe.py", "trace.py"):
+        ctx = _ctx(PORT / "obs" / name, f"src/repro/engine/obs_{name}")
+        assert list(check_swallowed_exception(ctx)) == [], name
     bad = "try:\n    f()\nexcept ValueError:\n    pass\n"
     ctx = FileContext(path="/x.py", rel="src/repro/engine/x.py", tree=ast.parse(bad), source=bad)
     assert len(list(check_swallowed_exception(ctx))) == 1
