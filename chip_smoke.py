@@ -129,13 +129,46 @@ Phases, each fatal on failure (nothing is caught while the run goes on):
    the phase started ended, no fault plan armed and no metrics registry or
    trace collector installed; then, as a reading, how many of 20 one-kernel calls
    ``torch.profiler`` records after the phase.
+2g. Hands-off maintenance, run after 2f: ``serve`` with ``autopilot=True``,
+   the lifecycle controller ticking once a query batch after a churn of the
+   catalog (K/2 docs deleted, K added). Part one, *soak*: the JAX repo's CI
+   soak arguments on ``tiny`` (``--seal-rows 24 --churn-docs 16 --queries 96
+   --batch 8 --mutate-rate 0.2 --probe 64 --autopilot-max-segments 8``),
+   the probe's recall held to that CI's gate, 0.620 +- 0.05.
+   Part two, *at scale*: the NYTimes shape at phase 2's document count (the
+   build seals a segment per ingest batch of 16384, 19 at 300,000 docs, all
+   compacted into one before serving), 2048-row seals, 512 docs of churn a
+   batch, 512 queries in batches of 8 as in the soak (16 more segments
+   sealed under the controller, one every fourth batch: the ladder folds
+   only segments no query scored since the last tick, which it can tell only
+   while the layout stays put between two ticks, and with more queries a
+   batch nearly every segment shares a band key with one of them), the
+   distill ladder (N // 2, N // 4), the prefilter with 8 bands, the probe
+   over 64 queries, and a segment gate of the size-tier bound (3 widths x 4
+   x ceil(log_4 17) = 36). Launch
+   counters are zeroed before each ``serve`` and read after. Each part fails
+   when the segment gate fails, a tick failed or raised, a job is pending after settling, a job the controller
+   started ran on another backend, never swapped in, or (with a band index
+   wanted) built its index without launching ``band_hash`` (a merge at its
+   snapshot, a distillation in its swap: ``SegmentedStore`` is patched for
+   the phase to count them), the answers after settling are not the
+   exhaustive answers over the store as it stands (:func:`check_as_it_stands`),
+   ``health()`` records anything but the escape hatch, or a kernel of the
+   path never launched (``build_sketch``, ``sketch_score`` and
+   ``count_bins``; at scale also ``band_hash``, and ``rebucket`` for the
+   mixed-width queries after at least one distillation, beside at least one
+   merge with a band index; every slab scored here is under 8192 rows, where
+   top-k is a score and a sort, so ``sketch_topk`` is not on this path);
+   then :func:`assert_nothing_left`. It prints ticks, merges, distills,
+   guardrail trips, the final segment count, the probe's recall, the tick's
+   median and maximum host milliseconds and the seconds of each part.
 
 The line before the last lists the seven kernels as JSON (every phase's
 kernel rows carry ``ms`` and ``kernel_ms``; ``rebucket``'s also its launch
 floor, ``floor_ms`` and ``floor_kernel_ms`` on a (1, 1)-word input), the one
 before it the card; before those, ``{"serve": ...}``, ``{"mutable": ...}``,
-``{"prefilter": ...}``, ``{"hash_mode": ...}`` and ``{"ops_plane": ...}``
-lines with the end-to-end readings; the last line is the device summary.
+``{"prefilter": ...}``, ``{"hash_mode": ...}``, ``{"ops_plane": ...}`` and
+``{"autopilot": ...}`` lines with the end-to-end readings; the last line is the device summary.
 Every ``serve`` of the run draws each corpus once: :func:`share_corpora`
 memoises the generator ``serve`` calls, for this process (generation is
 most of the run's host time). Without a card, or without the
@@ -147,6 +180,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -1384,6 +1418,184 @@ def ops_plane_phase(torch, dev, spec, n_bins: int, sync_ref: dict) -> dict:
     return {"background": background, "checkpoint": checkpoint, "chaos": chaos}
 
 
+def controller_jobs(torch):
+    """Patch ``SegmentedStore`` for phase 2g so that every background job
+    records the ``band_hash`` launches made for its band index: a merge's at
+    its snapshot (inside ``compact_async``), a distillation's in its swap
+    (inside ``_apply_swap``). In phase 2g only the lifecycle controller starts
+    jobs. Returns the list of records and a function that undoes the patch."""
+    from repro_torch.engine.segments import SegmentedStore
+    from repro_torch.hopper import ops
+
+    real = {n: getattr(SegmentedStore, n) for n in ("compact_async", "distill_async",
+                                                    "_apply_swap")}
+    jobs, by_job = [], {}
+
+    def record(store, op, rows, backend, hashed):
+        rec = {"op": op, "rows": rows, "backend": getattr(backend, "name", None),
+               "indexed": store.band_policy is not None and store.band_policy.wants_index(rows),
+               "band_hash": hashed, "swapped": False}
+        jobs.append(rec)
+        by_job[id(store._compaction.job)] = rec
+
+    def compact_async(self, groups=None, *, backend=None, _hold=None):
+        rows = sum(self.sealed[i].n_live for g in (groups or [range(len(self.sealed))])
+                   for i in g)
+        before = ops.launches["band_hash"]
+        started = real["compact_async"](self, groups, backend=backend, _hold=_hold)
+        if started:
+            record(self, "compact", rows, backend, ops.launches["band_hash"] - before)
+        return started
+
+    def distill_async(self, policy, *, now=0.0, only=None, backend=None, _hold=None):
+        started = real["distill_async"](self, policy, now=now, only=only, backend=backend,
+                                        _hold=_hold)
+        if started:
+            rows = sum(s.n_live for s in self._compaction.segments)
+            record(self, "distill", rows, backend, 0)
+        return started
+
+    def apply_swap(self, job):
+        before = ops.launches["band_hash"]
+        got = real["_apply_swap"](self, job)
+        rec = by_job.get(id(job.job))
+        if rec is not None:
+            rec["swapped"] = got is not None
+            if rec["op"] == "distill":
+                rec["band_hash"] = ops.launches["band_hash"] - before
+        return got
+
+    SegmentedStore.compact_async = compact_async
+    SegmentedStore.distill_async = distill_async
+    SegmentedStore._apply_swap = apply_swap
+
+    def undo():
+        for n, f in real.items():
+            setattr(SegmentedStore, n, f)
+
+    return jobs, undo
+
+
+def autopilot_phase(torch, dev, spec, n_bins: int) -> dict:
+    """Phase 2g: ``serve --autopilot`` on the card, the lifecycle controller
+    ticking once a query batch over a churning catalog. Part one: the JAX
+    repo's CI soak arguments on ``tiny``; part two: ``spec`` (the NYTimes
+    shape, d=102660, psi=870, N=5859) with 2048-row seals, 512 docs of churn a
+    batch of 8 queries, the distill ladder (N // 2, N // 4) and the prefilter.
+    Returns its readings."""
+    from repro_torch.data.synthetic import DATASETS
+    from repro_torch.hopper import ops
+    from repro_torch.launch.serve import serve
+
+    readings = {}
+    parts = {
+        "soak": dict(spec=DATASETS["tiny"], queries=96, topk=10, batch=8, mutate_rate=0.2,
+                     seal_rows=24, probe=64, churn_docs=16, autopilot_max_segments=8),
+        "at_scale": dict(spec=spec, queries=512, topk=10, batch=8, ingest_batch=16384,
+                         seal_rows=2048, probe=64, churn_docs=512, prefilter=True, bands=8,
+                         autopilot_distill=None),
+    }
+    for name, kw in parts.items():
+        kw = dict(kw)
+        spec_ = kw.pop("spec")
+        widths = ()
+        if name == "at_scale":
+            widths = (n_bins // 2, n_bins // 4)
+            kw["autopilot_distill"] = widths
+            # the size-tier bound, F * ceil(log_F S) a width, over the S
+            # segments the controller can see sealed: the build's compacted
+            # one and those the churn seals
+            s_total = 1 + kw["queries"] // kw["batch"] * kw["churn_docs"] // kw["seal_rows"]
+            kw["autopilot_max_segments"] = (1 + len(widths)) * 4 * math.ceil(
+                math.log(s_total, 4))
+        print(f"phase 2g {name}: {spec_.n_points} docs (d={spec_.d}, psi={spec_.max_nnz}); "
+              + (f"cut from 300,000 to {spec_.n_points} by --n-points"
+                 if name == "at_scale" and spec_.n_points < 300_000 else "no cut"))
+        jobs, undo = controller_jobs(torch)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            out = serve(spec_, backend="cuda", device=dev, autopilot=True, **kw)
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(ops.launches)
+        engine, ap = out["engine"], out["autopilot"]
+        cs = ap["controller"]
+        print(f"phase 2g {name} launches: {launches}")
+        if not ap["ok"]:
+            fail(f"phase 2g {name}: {ap['segments']} sealed segments, above the gate "
+                 f"{kw['autopilot_max_segments']}")
+        if name == "soak" and not abs(out["probe"]["recall"] - 0.620) <= 0.05:
+            fail(f"phase 2g soak: probe recall {out['probe']['recall']} outside the JAX "
+                 "CI's gate, 0.620 +- 0.05")
+        if cs["failed_ticks"] or engine.health()["jobs"].get("lifecycle", {}).get("failed"):
+            fail(f"phase 2g {name}: a tick failed: {engine.health()['last_error']}")
+        if engine.store.job_pending is not None:
+            fail(f"phase 2g {name}: a {engine.store.job_pending} job is pending after settling")
+        if len(jobs) != cs["merges"] + cs["distills"]:
+            fail(f"phase 2g {name}: {len(jobs)} jobs started, the controller counts "
+                 f"{cs['merges']} merges and {cs['distills']} distillations")
+        for j in jobs:
+            if j["backend"] != "cuda" or not j["swapped"]:
+                fail(f"phase 2g {name}: a controller job ran on {j['backend']} or never "
+                     f"swapped in: {j}")
+            if j["indexed"] and j["band_hash"] < 1:
+                fail(f"phase 2g {name}: a controller {j['op']} built its band index without "
+                     f"the band_hash kernel: {j}")
+        # every slab scored here is under 8192 rows (tiny's segments; at scale
+        # the prefilter's candidate slabs and the head), where Backend.topk is
+        # a score and a sort: sketch_topk is not on this path
+        need = ["build_sketch", "sketch_score", "count_bins"]
+        if name == "at_scale":
+            need += ["band_hash", "rebucket"]
+            if cs["merges"] < 1 or cs["distills"] < 1:
+                fail(f"phase 2g {name}: the controller merged {cs['merges']} and distilled "
+                     f"{cs['distills']} times; each must happen at this size")
+            if not any(j["indexed"] and j["op"] == "compact" for j in jobs):
+                fail(f"phase 2g {name}: no controller merge was big enough for a band index")
+        for k in need:
+            if launches[k] < 1:
+                fail(f"phase 2g {name}: kernel {k} never launched")
+        allow = ("prefilter_hatch",) if kw.get("prefilter") else ()
+        assert_healthy(engine, f"2g ({name})", allow=allow)
+        queries = torch.from_numpy(out["queries"]).to(dev)
+        now = out["serve_now"]
+        err = max(check_as_it_stands(torch, engine, queries[s : s + 256], now,
+                                     *engine.query(queries[s : s + 256], 10, now=now),
+                                     f"phase 2g {name}: answers after settling")
+                  for s in range(0, min(len(queries), 512), 256))
+        by_width = {}
+        for seg in engine.store.sealed:
+            by_width[seg.n_bins or out["n_bins"]] = by_width.get(seg.n_bins or out["n_bins"],
+                                                                 0) + 1
+        tick_ms = ap["tick_ms"]
+        readings[name] = {
+            "docs": out["n_docs"], "ticks": cs["ticks"], "merges": cs["merges"],
+            "distills": cs["distills"], "probes": cs["probes"],
+            "guardrail_trips": cs["guardrail_trips"], "segments": ap["segments"],
+            "gate": kw["autopilot_max_segments"], "segments_by_width": by_width,
+            "live": ap["live"], "churned": ap["churned"],
+            "probe_recall": out["probe"]["recall"], "recall": out["recall"],
+            "tick_ms_median": statistics.median(tick_ms), "tick_ms_max": max(tick_ms),
+            "serve_s": out["serve_s"], "seconds": seconds, "launches": launches,
+            "jobs": {op: {"count": sum(j["op"] == op for j in jobs),
+                          "band_hash": sum(j["band_hash"] for j in jobs if j["op"] == op),
+                          "indexed": sum(j["indexed"] for j in jobs if j["op"] == op)}
+                     for op in ("compact", "distill")},
+            "max_abs_err": err}
+        print(f"phase 2g {name}: {cs['ticks']} ticks, {cs['merges']} merges, {cs['distills']} "
+              f"distills, {cs['guardrail_trips']} guardrail trips, {ap['segments']} sealed "
+              f"segments (gate {kw['autopilot_max_segments']}; by width {by_width}), probe "
+              f"recall {out['probe']['recall']}, tick median "
+              f"{statistics.median(tick_ms):.3f} ms, max {max(tick_ms):.3f} ms, "
+              f"{seconds:.1f} s")
+        del engine, out, queries
+        torch.cuda.empty_cache()
+    return readings
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-points", type=int, default=300_000,
@@ -1633,6 +1845,12 @@ def main(argv=None) -> int:
     ops_plane["left_behind"]["profiler_after"] = {"calls": 20, "kernels_recorded": len(probe)}
     print(f"after phase 2f: {ops_plane['left_behind']}")
     phase_done("2f")
+
+    # --------------------------------------- hands-off maintenance (phase 2g)
+    threads_before = set(threading.enumerate())
+    autopilot = autopilot_phase(torch, dev, spec, out["n_bins"])
+    autopilot["left_behind"] = assert_nothing_left(threads_before)
+    phase_done("2g")
     ops_plane["phase_s"] = phase_s
     print(json.dumps({"serve": {k: out[k] for k in ("n_docs", "n_bins", "n_words", "build_s",
                                                   "docs_per_s", "serve_s", "queries_per_s",
@@ -1642,6 +1860,7 @@ def main(argv=None) -> int:
     print(json.dumps({"prefilter": pf}))
     print(json.dumps({"hash_mode": hm}))
     print(json.dumps({"ops_plane": ops_plane}))
+    print(json.dumps({"autopilot": autopilot}))
 
     print(card)
     print(json.dumps({"kernels": rows}))

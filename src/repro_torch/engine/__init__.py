@@ -4,6 +4,7 @@
 |---|---|---|
 | SketchStore | store.py | packed corpus, incremental ingest, fill cache |
 | SegmentedStore | segments.py | counting head, sealed segments, tombstones, compaction and distillation (synchronous or background), checkpoints, hits and lifecycle_snapshot() |
+| ControllerPolicy, LifecycleController | lifecycle.py | the hands-off maintenance loop: size-tiered merges, a distill ladder under a memory budget, a recall guardrail, one tick a heartbeat |
 | JobSupervisor | supervision.py | retries, watchdog, quarantine, degraded modes, health() of background jobs |
 | BandPolicy, BandIndex | banding.py | the banded LSH prefilter's knobs and per-segment bucket index |
 | Backend registry | backends.py | reference / cuda behind one name |
@@ -14,6 +15,7 @@
 from .backends import Backend, CudaBackend, ReferenceBackend, available_backends, get_backend
 from .banding import BandIndex, BandPolicy
 from .engine import SketchEngine, merge_segment_topk
+from .lifecycle import ControllerPolicy, LifecycleController
 from .planner import QueryChunk, QueryPlanner
 from .segments import DistillPolicy, SealedSegment, SegmentedStore
 from .store import SegmentView, SketchStore
@@ -23,10 +25,12 @@ __all__ = [
     "Backend",
     "BandIndex",
     "BandPolicy",
+    "ControllerPolicy",
     "CudaBackend",
     "DegradedMode",
     "DistillPolicy",
     "JobSupervisor",
+    "LifecycleController",
     "QueryChunk",
     "QueryPlanner",
     "ReferenceBackend",

@@ -107,6 +107,10 @@ class SketchEngine:
     # background jobs but still records degraded modes (see :attr:`supervisor`)
     _own_supervisor: Optional[JobSupervisor] = dataclasses.field(default=None, init=False,
                                                                  repr=False)
+    # the attached LifecycleController (engine/lifecycle.py), set by the
+    # controller itself so that ``metrics()`` shows its state; the engine
+    # never calls into it
+    controller: Optional[object] = dataclasses.field(default=None, init=False, repr=False)
 
     # ------------------------------------------------------------ construct
     @classmethod
@@ -195,7 +199,8 @@ class SketchEngine:
         gauges and histograms (empty while disarmed), ``health`` (the
         supervisor's), ``probe`` (the latest online recall reading),
         ``lifecycle`` (per-segment live/tombstone/width/age/hits, width mix,
-        tombstone density, from host bookkeeping), and ``prefilter`` and
+        tombstone density, from host bookkeeping), and ``controller`` (an
+        attached lifecycle controller's state), ``prefilter`` and
         ``last_trace`` when there are any. Reads nothing off the device."""
         now = self._auto_now(now)
         reg = obs_metrics.active()
@@ -221,6 +226,8 @@ class SketchEngine:
             out["lifecycle"] = {"segments": [], "head": None, "live_docs": n,
                                 "tombstone_density": 0.0,
                                 "width_mix": {str(self.cfg.n_bins): n} if n else {}}
+        if self.controller is not None:
+            out["controller"] = self.controller.controller_state()
         if self.last_prefilter_stats is not None:
             out["prefilter"] = dict(self.last_prefilter_stats)
         col = obs_trace.active()

@@ -444,6 +444,10 @@ class SegmentedStore:
     head_hits: int = 0
     _loc: Dict[int, Tuple[int, int]] = dataclasses.field(default_factory=dict)
     _n_live: int = 0
+    # bumps whenever the set of sealed segments changes (seal, compaction,
+    # a background swap): segment indexes shift then, so per-index state
+    # (the lifecycle controller's hits baseline) is valid within one epoch
+    _layout_epoch: int = 0
     _compaction: Optional[_CompactionJob] = dataclasses.field(default=None, repr=False)
     # every background job goes through it: failures are retried or
     # quarantined here and never raised into a query
@@ -884,6 +888,7 @@ class SegmentedStore:
             obs_metrics.inc("lifecycle.seal.runs")
             obs_metrics.inc("lifecycle.seal.rows", seg.n_rows)
         self.head = _Head.create(self.cfg.n_bins, self.cfg.n_words, h.capacity, self.device)
+        self._layout_epoch += 1
         return seg
 
     def seal_sketches(self, sketches: torch.Tensor, *, now: float = 0.0,
@@ -908,6 +913,7 @@ class SegmentedStore:
             band_index=self._band_index_for(sketches, b, backend)))
         self._index_segment(len(self.sealed) - 1)
         self._n_live += b
+        self._layout_epoch += 1
         obs_metrics.inc("lifecycle.seal.runs")
         obs_metrics.inc("lifecycle.seal.rows", b)
         return range(int(ids[0]), int(ids[-1]) + 1)
@@ -942,6 +948,7 @@ class SegmentedStore:
                                             n_bins=width,
                                             band_index=self._band_index_for(sk, len(ids),
                                                                             backend)))
+        self._layout_epoch += 1
         self.sealed = new_sealed
         for seg_i in range(len(self.sealed)):
             self._index_segment(seg_i)
@@ -1230,6 +1237,7 @@ class SegmentedStore:
             stats["rows_out"] += n
         new_sealed.extend(s for s in self.sealed if id(s) not in replaced)
         self.sealed = new_sealed
+        self._layout_epoch += 1
         self._loc = {g: loc for g, loc in self._loc.items() if loc[0] == _HEAD}
         for seg_i in range(len(self.sealed)):
             self._index_segment(seg_i)

@@ -12,6 +12,9 @@
         --chaos 0.3 --chaos-seed 1234
     PYTHONPATH=src python -m repro_torch.launch.serve --dataset tiny --device cpu \\
         --prefilter --probe 8 --stats-every 1 --metrics-json metrics.json
+    PYTHONPATH=src python -m repro_torch.launch.serve --dataset tiny --device cpu \\
+        --autopilot --seal-rows 24 --churn-docs 16 --queries 96 --batch 8 \\
+        --mutate-rate 0.2 --probe 64 --autopilot-max-segments 8
 
 ``repro.launch.serve`` on the port: generate the corpus, size N by Theorem 1,
 draw the Ψ table, stream the corpus into the store in ``--ingest-batch``
@@ -48,9 +51,23 @@ that verifies. The telemetry plane is armed for the whole run (every query
 sampled): ``--metrics-json`` writes the final ``engine.metrics()`` snapshot,
 ``--stats-every`` prints a registry summary every N batches, and ``--probe Q``
 runs the online recall probe over Q of the served queries, a gate with
-``--probe-baseline`` / ``--probe-tol``. All the work is in :func:`serve`;
-:func:`main` only reads the flags (and exits non-zero when the probe's gate
-fails).
+``--probe-baseline`` / ``--probe-tol``.
+
+``--autopilot`` (which implies the mutable store, and ``--seal-rows`` of
+``max(n // 16, 64)`` if unset) attaches a
+:class:`~repro_torch.engine.lifecycle.LifecycleController` and, before each
+query batch, churns the catalog (``--churn-docs K``: K/2 live docs deleted, K
+fresh ones added) and ticks the controller once: size-tiered merges
+(``--autopilot-fanout``), a distill ladder (``--autopilot-distill``) under a
+memory budget (``--autopilot-budget``) and the recall guardrail
+(``--probe-baseline``) run from what the store reports, with no explicit
+compact or distill. After the loop the controller settles (up to four more
+ticks, each after the pending job has landed) and ``--autopilot-max-segments``
+gates the sealed-segment count; ``--probe`` then reads the controller's own
+probe. Ticks are numbered on the query clock (one a batch), as the lifecycle
+clock counts ingest batches. All the work is in :func:`serve`; :func:`main`
+only reads the flags (and exits non-zero when the probe's or the segment
+count's gate fails).
 """
 
 from __future__ import annotations
@@ -69,8 +86,9 @@ from .. import faults, obs, resolve_device
 from ..checkpoint.manager import CheckpointManager
 from ..core import BinSketchConfig, make_mapping
 from ..data.synthetic import DATASETS, DatasetSpec, generate_corpus
-from ..engine import (BandPolicy, DistillPolicy, JobSupervisor, QueryPlanner, SegmentedStore,
-                      SketchEngine, SupervisionPolicy)
+from ..engine import (BandPolicy, ControllerPolicy, DistillPolicy, JobSupervisor,
+                      LifecycleController, QueryPlanner, SegmentedStore, SketchEngine,
+                      SupervisionPolicy)
 from ..obs.probe import RecallProbe, exact_topk
 
 __all__ = ["main", "recall_at", "serve"]
@@ -164,6 +182,90 @@ def _report_distill(engine: SketchEngine, out: dict, background: bool) -> None:
           + (" (the queries above straddled the swaps)" if background else " from here"))
 
 
+class _Autopilot:
+    """``serve --autopilot``: the controller, the catalog's churn and the
+    settle loop. ``contents`` and ``born`` are serve's catalog, kept in step
+    with every churned doc."""
+
+    def __init__(self, engine: SketchEngine, spec: DatasetSpec, contents: dict, born: dict, *,
+                 topk: int, churn_docs: int, now0: float, probe: int, policy: ControllerPolicy):
+        self.engine, self.contents, self.born = engine, contents, born
+        self.topk, self.churn_docs, self.now0 = topk, churn_docs, now0
+        pr = RecallProbe(engine, k=topk, sample=probe, seed=0) if probe else None
+        self.controller = LifecycleController(engine, policy, probe=pr, probe_feed=self._catalog)
+        self.rng = np.random.default_rng(5)
+        self.pool, _ = generate_corpus(spec, seed=2)
+        self.cursor = 0
+        self.tick_ms = []
+        print(f"autopilot: controller armed (tier_min_rows={policy.tier_min_rows}, "
+              f"fanout={policy.tier_fanout}, distill={list(policy.distill_widths) or 'off'}, "
+              f"churn={churn_docs} docs/batch, probe={'on' if pr else 'off'})")
+
+    def _catalog(self):
+        ids = np.asarray(sorted(self.contents))
+        return ids, np.stack([self.contents[int(g)] for g in ids])
+
+    def _tick(self, now: float) -> Optional[dict]:
+        t0 = time.perf_counter()
+        report = self.controller.tick(now=now)
+        self.tick_ms.append((time.perf_counter() - t0) * 1e3)
+        return report
+
+    def step(self, bi: int) -> None:
+        """Before query batch ``bi``: delete K/2 live docs (never below
+        ``topk`` left), add K fresh ones, then one tick, all at the batch's
+        time on the query clock."""
+        now = float(self.now0 + bi)
+        if self.churn_docs:
+            live = sorted(self.contents)
+            k_del = min(self.churn_docs // 2, max(len(live) - self.topk, 0))
+            if k_del > 0:
+                dead = [int(g) for g in self.rng.choice(live, k_del, replace=False)]
+                self.engine.delete(dead)
+                for g in dead:
+                    self.contents.pop(g)
+                    self.born.pop(g, None)
+            take = self.pool[self.cursor : self.cursor + self.churn_docs]
+            if len(take):
+                for j, g in enumerate(self.engine.add(take, now=now)):
+                    self.contents[int(g)] = take[j]
+                    self.born[int(g)] = now
+                self.cursor += len(take)
+        self._tick(now)
+
+    def heartbeat(self, inner: Optional[Callable[[int], None]]) -> Callable[[int], None]:
+        """The serve loop's heartbeat: ``inner`` (background maintenance),
+        then :meth:`step`."""
+        def beat(bi: int) -> None:
+            if inner is not None:
+                inner(bi)
+            self.step(bi)
+        return beat
+
+    def settle(self, now: float, max_segments: Optional[int]) -> dict:
+        """Drain the action cascade (a merge can put the next tier over its
+        fanout): up to four ticks, each after the pending job has landed;
+        then report, and gate the sealed-segment count at ``max_segments``."""
+        store = self.engine.store
+        for i in range(4):
+            store.wait_compaction()  # supervised: never raises a job's error
+            r = self._tick(now + i)
+            if r is None or r["action"] is None:
+                break
+        store.wait_compaction()
+        cs = self.controller.controller_state()
+        nseg = len(store.sealed)
+        print(f"autopilot: {cs['ticks']} tick(s): {cs['merges']} merge(s), {cs['distills']} "
+              f"distill(s), {cs['probes']} probe launch(es), {cs['guardrail_trips']} guardrail "
+              f"trip(s), state={cs['state']}; {nseg} sealed segment(s), live={store.size}")
+        ok = max_segments is None or nseg <= max_segments
+        if max_segments is not None:
+            print(f"autopilot: segment count {nseg} {'<=' if ok else '>'} gate {max_segments}"
+                  + ("" if ok else " — GATE FAILED"))
+        return {"controller": cs, "segments": nseg, "live": int(store.size), "ok": ok,
+                "tick_ms": list(self.tick_ms), "churned": self.cursor}
+
+
 def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 0.05,
           batch: int = 32, ingest_batch: int = 1024, backend: str = "auto",
           device="cuda", mapping: Optional[torch.Tensor] = None,
@@ -173,7 +275,10 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
           bands: int = 8, background_compact: bool = False, chaos: Optional[float] = None,
           chaos_seed: int = 1234, on_batch: Optional[Callable] = None,
           metrics_json: Optional[str] = None, stats_every: int = 0, probe: int = 0,
-          probe_baseline: Optional[float] = None, probe_tol: float = 0.02) -> dict:
+          probe_baseline: Optional[float] = None, probe_tol: float = 0.02,
+          autopilot: bool = False, churn_docs: int = 8, autopilot_fanout: int = 4,
+          autopilot_distill: Sequence[int] = (), autopilot_budget: Optional[int] = None,
+          autopilot_max_segments: Optional[int] = None) -> dict:
     """Build a store over ``spec``'s corpus (seed 0), optionally mutate and
     distill it, serve ``queries`` surviving docs (seed 1) in batches of
     ``batch``, and check recall@``topk``.
@@ -199,7 +304,13 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
     ``probe`` runs the online recall probe over up to that many served
     queries after serving; ``out["probe"]`` holds its reading and ``ok``,
     False when the reading is missing or outside ``probe_tol`` of
-    ``probe_baseline``."""
+    ``probe_baseline``. ``autopilot`` runs the lifecycle controller over a
+    churning catalog (the module docstring; the other ``autopilot_*`` and
+    ``churn_docs`` arguments are its flags); ``out["autopilot"]`` holds the
+    controller's state, the settled segment count, whether the
+    ``autopilot_max_segments`` gate held (``ok``) and each tick's host
+    milliseconds; the recall and the probe are then over the catalog as the
+    churn left it."""
     dev = resolve_device(device)
     idx, lens = generate_corpus(spec, seed=0)
     n = idx.shape[0]
@@ -209,7 +320,10 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
         prefilter = background_compact = True
     else:
         chaos = None
-    mutable = mutate_rate > 0.0 or ttl is not None or distill is not None or prefilter
+    if autopilot and seal_rows is None:
+        seal_rows = max(n // 16, 64)  # segments for the controller to manage
+    mutable = (mutate_rate > 0.0 or ttl is not None or distill is not None or prefilter
+               or autopilot)
     background = background_compact and mutable
     print(f"corpus: {n} docs, d={spec.d}, psi={spec.max_nnz}"
           + (f", mutate-rate={mutate_rate}" if mutable else ""))
@@ -316,6 +430,7 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
                   "survive the mutation phase)")
         q_pick = rng.choice(len(surv_ids), n_queries, replace=False)
         q_rows = surv_rows[q_pick]
+        query_ids = surv_ids[q_pick]
         truth_ids = surv_ids[exact_topk(surv_rows, q_rows, topk, device=dev)]
 
         mgr = plan = None
@@ -351,6 +466,18 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
                 engine.store.save(mgr, step=saves, blocking=False)
 
         heartbeat = maintain if background else None
+        pilot = None
+        if autopilot:
+            pilot = _Autopilot(engine, spec, contents, born, topk=topk, churn_docs=churn_docs,
+                               now0=serve_now, probe=probe, policy=ControllerPolicy(
+                                   tier_min_rows=max(seal_rows, 1),
+                                   tier_fanout=autopilot_fanout,
+                                   distill_widths=tuple(autopilot_distill or ()),
+                                   memory_budget=autopilot_budget,
+                                   # ages count ingest and query batches, as TTL does
+                                   cold_age=4.0, probe_baseline=probe_baseline,
+                                   probe_tol=probe_tol,
+                                   probe_interval=4.0 if probe else None))
         if distill:
             sc, ids, t_serve, _ = _serve_queries(engine, q_rows, topk, batch, serve_now,
                                                  heartbeat, on_batch, stats_every)
@@ -372,10 +499,20 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
                 out.update(distill_s=time.perf_counter() - t0, n_tiers=n_tiers)
                 _report_distill(engine, out, background)
 
+        if pilot is not None:
+            heartbeat = pilot.heartbeat(heartbeat)
         sc, ids, t_serve, pending_batches = _serve_queries(engine, q_rows, topk, batch, serve_now,
                                                            heartbeat, on_batch, stats_every)
         print(f"serve: {n_queries} queries in {t_serve:.2f}s "
               f"({n_queries / t_serve:.0f} q/s, batch={batch})")
+        if pilot is not None:
+            out["autopilot"] = pilot.settle(serve_now + n_queries / max(batch, 1) + 1,
+                                            autopilot_max_segments)
+            _sync(dev)
+            # the churn moved the catalog: recall and the probe read it as it is now
+            surv_ids = np.asarray(sorted(contents))
+            surv_rows = np.stack([contents[int(g)] for g in surv_ids])
+            truth_ids = surv_ids[exact_topk(surv_rows, q_rows, topk, device=dev)]
         if background:
             # drain: the pending job, then the rest of the ladder, one pass at a
             # time (a failed pass ends it, as in the synchronous loop)
@@ -394,7 +531,8 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
             out["chaos"] = _chaos_report(engine, mgr, plan, saves, dev)
         if probe:
             out["probe"] = _run_probe(engine, probe, topk, surv_ids, surv_rows, q_rows,
-                                      serve_now, probe_baseline, probe_tol)
+                                      serve_now, probe_baseline, probe_tol,
+                                      pilot.controller.probe if pilot is not None else None)
         recall = recall_at(ids, truth_ids, topk)
         print(f"recall@{topk} vs exact Jaccard" + (" over survivors" if mutable else "")
               + f": {recall:.3f}")
@@ -415,7 +553,7 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
         out.update(metrics=snap, health=snap["health"], recall=recall, serve_s=t_serve,
                    queries_per_s=n_queries / t_serve, engine=engine, corpus=idx,
                    surv_ids=surv_ids, surv_rows=surv_rows, queries=q_rows,
-                   query_ids=surv_ids[q_pick], truth_ids=truth_ids, scores=sc, ids=ids,
+                   query_ids=query_ids, truth_ids=truth_ids, scores=sc, ids=ids,
                    serve_now=serve_now)
         return out
     finally:
@@ -423,12 +561,15 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
 
 
 def _run_probe(engine: SketchEngine, sample: int, topk: int, surv_ids, surv_rows, q_rows,
-               now: Optional[float], baseline: Optional[float], tol: float) -> dict:
+               now: Optional[float], baseline: Optional[float], tol: float,
+               pr: Optional[RecallProbe] = None) -> dict:
     """The online recall probe over up to ``sample`` of the served queries,
     waited for; with ``baseline``, a gate of ``|recall - baseline| <= tol``.
-    Returns the reading and whether the gate held (``ok``)."""
-    pr = RecallProbe(engine, k=topk, sample=sample, seed=0)
-    if not pr.launch(surv_ids, surv_rows, queries=q_rows):
+    ``pr`` is a probe to reuse (the controller's, so the gate reads the gauge
+    the guardrail watched): a round it has in flight is the reading. Returns
+    the reading and whether the gate held (``ok``)."""
+    pr = pr if pr is not None else RecallProbe(engine, k=topk, sample=sample, seed=0)
+    if not (pr.running or pr.launch(surv_ids, surv_rows, queries=q_rows)):
         print("probe: launch refused (op quarantined) — no reading")
         return {"recall": None, "ok": baseline is None}
     got = pr.wait(now=now)
@@ -530,9 +671,31 @@ def main(argv=None):
                          "the reading is missing or further than the tolerance from it")
     ap.add_argument("--probe-tol", type=float, default=0.02,
                     help="allowed |probe recall - baseline| for --probe-baseline")
+    ap.add_argument("--autopilot", action="store_true",
+                    help="hands-off mode: attach a LifecycleController and tick it once a "
+                         "query batch (size-tiered merges, the distill ladder and the recall "
+                         "guardrail from what the store reports, no explicit compact or "
+                         "distill); implies the mutable store; --churn-docs exercises it")
+    ap.add_argument("--churn-docs", type=int, default=8, metavar="K",
+                    help="--autopilot: each query batch, delete K/2 live docs and add K fresh "
+                         "ones (0: no churn)")
+    ap.add_argument("--autopilot-fanout", type=int, default=4,
+                    help="--autopilot: segments a size tier holds before it merges "
+                         "(ControllerPolicy.tier_fanout)")
+    ap.add_argument("--autopilot-distill", default=None, metavar="N1,N2,...",
+                    help="--autopilot: the width ladder of controller-driven distillation "
+                         "(default: no distillation)")
+    ap.add_argument("--autopilot-budget", type=int, default=None, metavar="BYTES",
+                    help="--autopilot: sealed-slab bytes above which the ladder runs "
+                         "(default: whenever a ladder is given)")
+    ap.add_argument("--autopilot-max-segments", type=int, default=None,
+                    help="gate: nonzero exit when the sealed-segment count ends above this")
     args = ap.parse_args(argv)
-    widths = (tuple(int(w) for w in args.distill.split(",") if w)
-              if args.distill else None)
+
+    def widths_of(flag):
+        return tuple(int(w) for w in flag.split(",") if w) if flag else None
+
+    widths = widths_of(args.distill)
     out = serve(DATASETS[args.dataset], queries=args.queries, topk=args.topk,
                 rho=args.rho, batch=args.batch, ingest_batch=args.ingest_batch,
                 backend=args.backend, device=args.device, mutate_rate=args.mutate_rate,
@@ -541,9 +704,16 @@ def main(argv=None):
                 background_compact=args.background_compact, chaos=args.chaos,
                 chaos_seed=args.chaos_seed, metrics_json=args.metrics_json,
                 stats_every=args.stats_every, probe=args.probe,
-                probe_baseline=args.probe_baseline, probe_tol=args.probe_tol)
+                probe_baseline=args.probe_baseline, probe_tol=args.probe_tol,
+                autopilot=args.autopilot, churn_docs=args.churn_docs,
+                autopilot_fanout=args.autopilot_fanout,
+                autopilot_distill=widths_of(args.autopilot_distill),
+                autopilot_budget=args.autopilot_budget,
+                autopilot_max_segments=args.autopilot_max_segments)
     if args.probe and not out["probe"]["ok"]:
         raise SystemExit("probe recall gate failed (see 'probe:' lines above)")
+    if args.autopilot and not out["autopilot"]["ok"]:
+        raise SystemExit("autopilot segment-count gate failed (see 'autopilot:' lines above)")
     return out["recall"]
 
 

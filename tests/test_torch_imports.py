@@ -49,7 +49,8 @@ def test_port_imports_without_cuda_and_default_raises(monkeypatch):
                 "repro_torch.hopper.hash_build", "repro_torch.faults",
                 "repro_torch.obs.clock", "repro_torch.obs.metrics",
                 "repro_torch.engine.supervision", "repro_torch.checkpoint.manager",
-                "repro_torch.obs.trace", "repro_torch.obs.probe"):
+                "repro_torch.obs.trace", "repro_torch.obs.probe",
+                "repro_torch.engine.lifecycle"):
         assert new in names
 
     import repro_torch

@@ -9,8 +9,9 @@ determinism (also decision for decision against ``repro.faults``), ``times``
 retry, quarantine and probe, the watchdog, band lookup and band build
 degradation, the full chaos cycle, and faults as metric deltas (the registry
 half; the trace half waits for the port's telemetry). Its checkpoint cases
-are in ``tests/test_torch_checkpoint.py``. Not ported: the placement case and
-the two lifecycle-controller cases (the port has neither yet).
+are in ``tests/test_torch_checkpoint.py``, its first lifecycle-controller case
+in ``tests/test_torch_lifecycle.py``. Not ported: the placement case (the
+port has no placement yet) and the hung-merge controller case.
 
 Every supervisor runs on a ``ManualClock``: retries use a zero backoff and the
 watchdog fires when the test advances the clock, so no case waits on real
@@ -77,6 +78,16 @@ def _contents(idx, n, deleted=()):
 def _supervisor(policy=FAST):
     clock = ManualClock()
     return JobSupervisor(policy, clock=clock), clock
+
+
+def join_attempt(job, timeout=30.0):
+    """Join a supervised job's attempt in flight, if it runs on a thread, for
+    at most ``timeout`` seconds: a loop that polls between joins then ends on
+    the job's state, however loaded the host, never on a count of sleeps."""
+    thread = getattr(getattr(job, "_job", None), "_thread", None)
+    if thread is not None:
+        thread.join(timeout)
+        assert not thread.is_alive(), f"a {job.op} attempt still runs after {timeout} s"
 
 
 # ------------------------------------------------------------- fault plans
@@ -156,11 +167,13 @@ def test_compaction_failure_never_reaches_queries(tiny):
     q = idx[100:108]
     with faults.scoped(faults.FaultPlan({"compact.work": faults.FaultSpec("raise")})):
         assert eng.store.compact_async() is True
-        for _ in range(200):  # queries drive the poll and retry state machine
+        # queries drive the poll and retry state machine; between two, the
+        # attempt in flight is joined, so the loop ends on the job's state
+        for _ in range(4 * (FAST.max_retries + 1)):
             eng.query(q, 5)
             if sup.health()["jobs"]["compact"]["failed"]:
                 break
-            time.sleep(0.005)
+            join_attempt(getattr(eng.store._compaction, "job", None))
     h = sup.health()
     assert h["jobs"]["compact"]["failed"] == 1
     assert h["jobs"]["compact"]["retries"] == FAST.max_retries
@@ -594,6 +607,7 @@ def test_port_workers_own_only_their_snapshots():
     exactly that cell, so it does see the workers)."""
     allow = {("src/repro_torch/checkpoint/manager.py", "BackgroundJob.__init__.run")}
     for rel in ("src/repro_torch/engine/segments.py", "src/repro_torch/engine/supervision.py",
+                "src/repro_torch/engine/lifecycle.py",
                 "src/repro_torch/checkpoint/manager.py", "src/repro_torch/obs/probe.py",
                 "src/repro_torch/obs/trace.py"):
         assert ownership.check_file(str(REPO / rel), rel, allowlist=allow) == [], rel
