@@ -81,6 +81,26 @@ Phases, each fatal on failure (nothing is caught while the run goes on):
    N < 32, rows of pads only; :func:`bitmap_ragged`: P % 4 in {0, 1, 2, 3},
    B from 1 to 16384, N up to the widest row, a base 4 bytes past
    alignment, int32 coefficients) and timed beside its bound.
+2h. Baselines and near-duplicates: ``find_near_duplicates`` (threshold
+   0.8, chunks of 1024) on the card through its defaults over phase 2's
+   corpus plus 64 planted pairs (``generate_similar_pairs`` at J=0.95),
+   300,128 docs. Every planted pair must be found, each reported estimate
+   must equal the plain score of its pair (``hopper/ref.py`` on the card,
+   rtol 1e-5 / atol 1e-6), and ``build_sketch`` and ``sketch_score`` must
+   launch, the latter once a planner chunk (294). It prints the pair count,
+   the seconds, the peak device memory and the score kernel's own time at
+   the chunk's shape. Then the first 4,096 docs under the same Ψ on the card
+   and on the CPU (``reference``) at threshold 0.3: the same pairs in the
+   same order but for pairs within 1e-5 of the threshold, estimates within
+   rtol 2e-3 / atol 1e-3. Then the paper's baselines over the first 16,384
+   docs at N=5859 (BCS at N bins; MinHash, DOPH, SimHash, CBE at k = N;
+   OddSketch at ``suggested_k(N, 0.9)``): the parameters drawn for the card
+   equal the CPU's, and the card's sketches of the first 256 rows equal the
+   CPU's, bit for bit (CBE's bits wherever the CPU's projection is more than
+   1e-3 |x| from 0; the other lanes are counted). Readings, no gate: each
+   sketcher's milliseconds a document (CUDA events) beside BinSketch's
+   build, and each estimator's mean squared error over 64 pairs at J = 0.9
+   and 0.5. Printed as ``{"near_duplicates": ...}`` with the card.
 3. Each kernel held against its plain PyTorch version on the card, at the
    main path's shapes and on ragged ones: build bit-exact (also over
    :func:`bitmap_ragged`'s cases), score counts
@@ -167,7 +187,8 @@ The line before the last lists the seven kernels as JSON (every phase's
 kernel rows carry ``ms`` and ``kernel_ms``; ``rebucket``'s also its launch
 floor, ``floor_ms`` and ``floor_kernel_ms`` on a (1, 1)-word input), the one
 before it the card; before those, ``{"serve": ...}``, ``{"mutable": ...}``,
-``{"prefilter": ...}``, ``{"hash_mode": ...}``, ``{"ops_plane": ...}`` and
+``{"prefilter": ...}``, ``{"hash_mode": ...}``, ``{"near_duplicates": ...}``,
+``{"ops_plane": ...}`` and
 ``{"autopilot": ...}`` lines with the end-to-end readings; the last line is the device summary.
 Every ``serve`` of the run draws each corpus once: :func:`share_corpora`
 memoises the generator ``serve`` calls, for this process (generation is
@@ -1596,6 +1617,247 @@ def autopilot_phase(torch, dev, spec, n_bins: int) -> dict:
     return readings
 
 
+DEDUP_PLANTED = 64  # planted 0.95-Jaccard pairs appended to the corpus (phase 2h)
+DEDUP_CPU_ROWS = 4096  # rows of the card-against-CPU dedup check
+BASELINE_ROWS = 16_384  # rows each baseline sketches on the card
+BASELINE_CPU_ROWS = 256  # of those, the rows the CPU sketches again
+
+
+def pair_truth(a, b):
+    """Exact Jaccard and cosine of aligned padded rows (numpy, pad = -1)."""
+    js, cos = [], []
+    for x, y in zip(a, b):
+        x, y = set(x[x >= 0].tolist()), set(y[y >= 0].tolist())
+        inter = len(x & y)
+        js.append(inter / max(len(x | y), 1))
+        cos.append(inter / max(math.sqrt(len(x) * len(y)), 1e-12))
+    return np.array(js), np.array(cos)
+
+
+def baseline_sketchers(torch, n_bins: int, d: int) -> dict:
+    """Phase 2h's competitors: name -> (make(device) -> parameters, sketch(
+    parameters, rows) as the gate reads it, estimates(sketch_a, sketch_b) ->
+    {measure: (B,)}, the timed user call or None for the same). BCS at N
+    bins, MinHash, DOPH, SimHash and CBE at k = N, OddSketch at
+    suggested_k(N, 0.9); CBE's gate reads its float32 projections, its user
+    call returns the sign bits."""
+    from repro_torch.core.baselines import bcs, cbe, doph, minhash, oddsketch, simhash
+
+    k_odd = oddsketch.suggested_k(n_bins, 0.9)
+
+    def mh_est(a, b):
+        return minhash.estimates(a[0], b[0], a[1], b[1])
+
+    def cbe_est(a, b):
+        return cbe.estimates((a >= 0).to(torch.uint8), (b >= 0).to(torch.uint8))
+
+    return {
+        "bcs": (lambda dv: bcs.make_mapping(d, n_bins, device=dv),
+                lambda p, x: bcs.sketch_indices(p, n_bins, x),
+                lambda a, b: bcs.estimates(a, b, n_bins), None),
+        "minhash": (lambda dv: minhash.make_hashes(n_bins, device=dv), minhash.sketch_indices,
+                    mh_est, None),
+        "doph": (lambda dv: doph.make_hashes(device=dv),
+                 lambda p, x: doph.sketch_indices(p, n_bins, x), mh_est, None),
+        "oddsketch": (lambda dv: oddsketch.make_hashes(k_odd, device=dv),
+                      lambda p, x: oddsketch.sketch_indices(p, n_bins, x),
+                      lambda a, b: oddsketch.estimates(a, b, n_bins, k_odd), None),
+        "simhash": (lambda dv: simhash.make_hashes(n_bins, device=dv), simhash.sketch_indices,
+                    simhash.estimates, None),
+        "cbe": (lambda dv: cbe.make_params(d, device=dv),
+                lambda p, x: cbe.project_indices(p, n_bins, d, x), cbe_est,
+                lambda p, x: cbe.sketch_indices(p, n_bins, d, x)),
+    }
+
+
+def as_tuple(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def dedup_check(torch, dev, docs, planted, n_bins: int, card: str) -> dict:
+    """Phase 2h, first part: ``find_near_duplicates`` over ``docs`` on the
+    card through its defaults (its own Ψ), then the same search over the
+    first rows on the card and on the CPU under one Ψ."""
+    from repro_torch.core import BinSketchConfig, binsketch, make_mapping
+    from repro_torch.core import packed as pk
+    from repro_torch.data import find_near_duplicates
+    from repro_torch.data.synthetic import DATASETS
+    from repro_torch.engine import CudaBackend, QueryPlanner
+    from repro_torch.hopper import ops, ref
+
+    d, n = DATASETS["nytimes"].d, docs.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    pairs = find_near_duplicates(docs, d, threshold=0.8, chunk=1024)
+    seconds = time.perf_counter() - t0
+    launches = {k: ops.launches[k] for k in ("build_sketch", "sketch_score")}
+    peak = torch.cuda.max_memory_allocated()
+    missed = planted - {(i, j) for i, j, _ in pairs}
+    if missed:
+        fail(f"phase 2h: {len(missed)} of {len(planted)} planted pairs not found: "
+             f"{sorted(missed)[:4]}")
+    chunks = len(QueryPlanner(min_batch=8, max_batch=1024).plan(n))
+    if launches["sketch_score"] != chunks or launches["build_sketch"] < 1:
+        fail(f"phase 2h: dedup launched {launches}, not {chunks} score kernels and a build")
+
+    # each reported estimate against the plain score of its pair, on the
+    # card, under the Ψ dedup drew for itself (seed 0)
+    psi = int((docs >= 0).sum(1).max())
+    cfg = BinSketchConfig.from_sparsity(d, psi, 0.05)
+    if cfg.n_bins != n_bins:
+        fail(f"phase 2h: N={cfg.n_bins}, not phase 2's {n_bins}")
+    mapping = make_mapping(cfg, seed=0, device=dev)
+    est = torch.tensor([s for *_, s in pairs], dtype=torch.float32, device=dev)
+    plain = []
+    for s in range(0, len(pairs), 1024):
+        si, sj = (binsketch.sketch_indices(
+            cfg, mapping, torch.from_numpy(docs[[p[side] for p in pairs[s : s + 1024]]]).to(dev))
+            for side in (0, 1))
+        plain.append(torch.diagonal(ref.sketch_score_ref(si, sj, cfg.n_bins, "jaccard")))
+    plain = torch.cat(plain)
+    pair_err = float((est - plain).abs().max())
+    if not torch.allclose(est, plain, rtol=RTOL, atol=ATOL):
+        fail(f"phase 2h: reported estimates differ from the plain scores by up to {pair_err}")
+
+    # the score kernel at the path's chunk shape: its own device time
+    backend = CudaBackend()
+    corpus = torch.cat([backend.sketch(cfg, mapping, torch.from_numpy(docs[s : s + 16384]).to(dev))
+                        for s in range(0, n, 16384)])
+    fills = pk.row_popcount(corpus)
+    score_kernel_ms = device_ms(torch, lambda: ops.sketch_score(
+        corpus[:1024], corpus, cfg.n_bins, "jaccard", a_fills=fills[:1024], b_fills=fills))
+    del corpus, fills
+    torch.cuda.empty_cache()
+    print(f"phase 2h dedup: {len(pairs)} pairs over {n} docs (all {len(planted)} planted "
+          f"found) in {seconds:.3f} s, peak device memory {peak} bytes, launches {launches}, "
+          f"largest difference from the plain score {pair_err}; sketch_score kernel "
+          f"{score_kernel_ms:.4f} ms at (1024, {n}, {cfg.n_words} words), x {chunks} chunks "
+          f"{score_kernel_ms * chunks / 1e3:.3f} s; on {card}")
+
+    # card against CPU (the reference backend), the first rows, the same Ψ
+    thr = 0.3  # low enough that uniform docs give hundreds of pairs
+    kw = dict(threshold=thr, psi=psi, rho=0.05, chunk=1024)
+    rows = docs[:DEDUP_CPU_ROWS]
+    on_card = find_near_duplicates(rows, d, device=dev, mapping=mapping, **kw)
+    on_cpu = find_near_duplicates(rows, d, backend="reference", device="cpu",
+                                  mapping=mapping.cpu(), **kw)
+    got, want = {(i, j): s for i, j, s in on_card}, {(i, j): s for i, j, s in on_cpu}
+    edge = set(got) ^ set(want)
+    if any(abs(got.get(p, want.get(p)) - thr) > 1e-5 for p in edge):
+        fail(f"phase 2h: card and CPU dedup differ in pairs away from the threshold: "
+             f"{sorted(edge)[:4]}")
+    if ([p for p in got if p in want] != [p for p in want if p in got] or not want):
+        fail("phase 2h: card and CPU dedup list their pairs in another order, or none")
+    common = np.array([[got[p], want[p]] for p in got if p in want])
+    cpu_err = float(np.abs(common[:, 0] - common[:, 1]).max())
+    if not np.allclose(common[:, 0], common[:, 1], rtol=RTOL_REF, atol=ATOL_REF):
+        fail(f"phase 2h: card and CPU dedup estimates differ by up to {cpu_err}")
+    print(f"phase 2h dedup card vs CPU: {len(on_card)} and {len(on_cpu)} pairs at threshold "
+          f"{thr} over the first {len(rows)} docs, {len(edge)} within 1e-5 of it, largest "
+          f"estimate difference {cpu_err}")
+    return {"n_docs": n, "pairs": len(pairs), "planted_found": len(planted), "seconds": seconds,
+            "peak_device_bytes": peak, "launches": launches,
+            "max_abs_err_vs_plain": pair_err, "score_kernel_ms": score_kernel_ms,
+            "score_shape": [1024, n, cfg.n_words],
+            "vs_cpu": {"rows": len(rows), "threshold": thr, "pairs_card": len(on_card),
+                       "pairs_cpu": len(on_cpu), "at_threshold": len(edge),
+                       "max_abs_err": cpu_err}}
+
+
+def baselines_check(torch, dev, docs, n_bins: int, card: str) -> dict:
+    """Phase 2h, second part: each baseline on the card against the same
+    function on the CPU, its time a document beside BinSketch's, and its
+    estimators' mean squared error over planted pairs."""
+    from repro_torch.core import BinSketchConfig, estimators, make_mapping
+    from repro_torch.core import packed as pk
+    from repro_torch.data import generate_similar_pairs
+    from repro_torch.data.synthetic import DATASETS
+    from repro_torch.engine import CudaBackend
+
+    nyt = DATASETS["nytimes"]
+    rows = torch.from_numpy(docs[:BASELINE_ROWS]).to(dev)
+    rows_cpu = rows[:BASELINE_CPU_ROWS].cpu()
+    norm = (rows_cpu >= 0).sum(1, keepdim=True).double().sqrt()
+    cfg = BinSketchConfig(d=nyt.d, n_bins=n_bins)
+    mapping = make_mapping(cfg, seed=0, device=dev)
+    backend = CudaBackend()
+    per_doc = {"binsketch": cuda_ms(torch, lambda: backend.sketch(cfg, mapping, rows), 5)
+               / BASELINE_ROWS}
+    pairs = {j: generate_similar_pairs(nyt, j, 64) for j in (0.9, 0.5)}
+    truth = {j: pair_truth(a, b) for j, (a, b, _) in pairs.items()}
+    dev_pairs = {j: (torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
+                 for j, (a, b, _) in pairs.items()}
+
+    def mse(est, j):
+        out = {}
+        for m, col in (("jaccard", 0), ("cosine", 1)):
+            if m in est:
+                e = est[m].double().cpu().numpy()
+                out[m] = float(np.mean((e - truth[j][col]) ** 2))
+        return out
+
+    errors = {"binsketch": {}}
+    for j, (qa, qb) in dev_pairs.items():
+        sa, sb = backend.sketch(cfg, mapping, qa), backend.sketch(cfg, mapping, qb)
+        errors["binsketch"][str(j)] = mse(estimators.estimates_from_counts(
+            pk.row_popcount(sa), pk.row_popcount(sb), pk.row_popcount(sa & sb), n_bins), j)
+    unclear = {}
+    for name, (make, sketch, estimate, user) in baseline_sketchers(torch, n_bins, nyt.d).items():
+        params, params_cpu = as_tuple(make(dev)), as_tuple(make("cpu"))
+        if any(not torch.equal(p.cpu(), q) for p, q in zip(params, params_cpu)):
+            fail(f"phase 2h: {name}'s parameters differ between the card and the CPU")
+        unpack = (lambda p: p) if len(params) > 1 else (lambda p: p[0])
+        on_card = as_tuple(sketch(unpack(params), rows))
+        on_cpu = as_tuple(sketch(unpack(params_cpu), rows_cpu))
+        if name == "cbe":  # float32 FFTs: the sign holds wherever |projection| is clear of 0
+            clear = on_cpu[0].double().abs() > 1e-3 * norm
+            unclear[name] = int((~clear).sum())
+            g, w = on_card[0][:BASELINE_CPU_ROWS].cpu() >= 0, on_cpu[0] >= 0
+            if not torch.equal(g[clear], w[clear]):
+                fail("phase 2h: cbe's bits differ between the card and the CPU off 0")
+        else:
+            for g, w in zip(on_card, on_cpu):
+                exact_err(torch, g[:BASELINE_CPU_ROWS].cpu(), w, f"phase 2h {name} on the card")
+        call = user or sketch
+        per_doc[name] = cuda_ms(torch, lambda: call(unpack(params), rows), 3) / BASELINE_ROWS
+        errors[name] = {str(j): mse(estimate(sketch(unpack(params), qa),
+                                             sketch(unpack(params), qb)), j)
+                        for j, (qa, qb) in dev_pairs.items()}
+        del on_card
+        torch.cuda.empty_cache()
+    order = sorted(per_doc, key=per_doc.get)
+    print(f"phase 2h baselines: card equal to the CPU over the first {BASELINE_CPU_ROWS} rows "
+          f"(integer sketches bit for bit; cbe's bits off the rounding band, "
+          f"{unclear.get('cbe', 0)} lanes within 1e-3 |x| of 0); ms a document at "
+          f"{BASELINE_ROWS} rows: " + ", ".join(f"{k} {per_doc[k]:.6f}" for k in order)
+          + f"; on {card}")
+    for name, by_j in errors.items():
+        print(f"  {name} MSE: " + "; ".join(
+            f"J={j}: " + ", ".join(f"{m} {v:.6g}" for m, v in e.items()) for j, e in by_j.items())
+            + f" ({card})")
+    return {"rows": BASELINE_ROWS, "cpu_rows": BASELINE_CPU_ROWS, "n_bins": n_bins,
+            "ms_per_doc": per_doc, "order": order, "mse": errors,
+            "cbe_lanes_near_zero": unclear.get("cbe", 0)}
+
+
+def near_duplicates_phase(torch, dev, corpus, n_bins: int, card: str) -> dict:
+    """Phase 2h: phase 2's corpus with planted duplicates through
+    :func:`dedup_check`, then :func:`baselines_check` on its first rows."""
+    from repro_torch.data import generate_similar_pairs
+    from repro_torch.data.synthetic import DATASETS
+
+    a, b, _ = generate_similar_pairs(DATASETS["nytimes"], jaccard=0.95, n_pairs=DEDUP_PLANTED)
+    n0 = corpus.shape[0]
+    docs = np.concatenate([corpus, a, b])
+    planted = {(n0 + k, n0 + DEDUP_PLANTED + k) for k in range(DEDUP_PLANTED)}
+    out = {"card": card, "dedup": dedup_check(torch, dev, docs, planted, n_bins, card)}
+    torch.cuda.empty_cache()
+    out["baselines"] = baselines_check(torch, dev, docs, n_bins, card)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-points", type=int, default=300_000,
@@ -1713,6 +1975,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_done("2e")
 
+    # ----------------------------------- baselines and near-duplicates (2h)
+    near_dup = near_duplicates_phase(torch, dev, out["corpus"], out["n_bins"], card)
+    torch.cuda.empty_cache()
+    phase_done("2h")
+
     # ------------------------------------------ kernels vs plain, main shapes
     n, w = cfg.n_bins, cfg.n_words
     corpus_rows = torch.from_numpy(out["corpus"][:16384]).to(dev)
@@ -1803,7 +2070,8 @@ def main(argv=None) -> int:
         "src/repro/kernels/sketch_build.py:51",
         timed(torch, lambda: ops.build_sketch(bins, n), 20),
         cuda_ms(torch, lambda: ref.build_sketch_ref(bins, n), 3),
-        4.0 * bsz * p + 4.0 * bsz * w, float(bsz * p), build_err)
+        4.0 * bsz * p + 4.0 * bsz * w, float(bsz * p), build_err,
+        dedup_launches=near_dup["dedup"]["launches"]["build_sketch"])
     row("sketch_score", "src/repro_torch/hopper/csrc/popcount_sim.cu",
         "src/repro/kernels/popcount_sim.py:120",
         timed(torch, lambda: ops.sketch_score(qs, corpus, n, "jaccard", a_fills=qf,
@@ -1811,7 +2079,7 @@ def main(argv=None) -> int:
         cuda_ms(torch, lambda: ref.sketch_score_ref(qs, corpus, n, "jaccard", a_fills=qf,
                                                     b_fills=fills), 2),
         4.0 * (qn + cn) * (w + 1) + 4.0 * qn * cn, pair_macs, score_err, rate, lib_ms,
-        counts_ms=counts_ms)
+        counts_ms=counts_ms, dedup_launches=near_dup["dedup"]["launches"]["sketch_score"])
     row("sketch_topk", "src/repro_torch/hopper/csrc/topk_stream.cu",
         "src/repro/kernels/topk_stream.py:146",
         timed(torch, lambda: ops.sketch_topk(qs, corpus, n, "jaccard", k=10, a_fills=qf,
@@ -1859,6 +2127,7 @@ def main(argv=None) -> int:
     print(json.dumps({"mutable": mut}))
     print(json.dumps({"prefilter": pf}))
     print(json.dumps({"hash_mode": hm}))
+    print(json.dumps({"near_duplicates": near_dup}))
     print(json.dumps({"ops_plane": ops_plane}))
     print(json.dumps({"autopilot": autopilot}))
 

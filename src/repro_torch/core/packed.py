@@ -26,6 +26,7 @@ __all__ = [
     "band_hash",
     "band_hash_host",
     "band_shape",
+    "mul_u32",
 ]
 
 _M1 = 0x55555555
@@ -36,10 +37,9 @@ _U32 = 0xFFFFFFFF
 
 _BAND_SEED = 0x9E3779B9  # golden-ratio odd constant; per-band seeds derive from it
 _BAND_PRIME = 0x85EBCA6B  # murmur3 fmix multiplier
-_PRIME_LO, _PRIME_HI = _BAND_PRIME & 0xFFFF, _BAND_PRIME >> 16
 
-# elements of the (Q, chunk, W) int64 intermediate of and_popcount_pairwise
-_PAIRWISE_CHUNK_ELEMS = 1 << 25
+# float64 elements of one unpacked (rows, 32W) corpus block of and_popcount_pairwise
+_PAIRWISE_BLOCK_ELEMS = 1 << 25
 
 
 def num_words(n_bins: int) -> int:
@@ -89,16 +89,20 @@ def row_popcount(packed: torch.Tensor) -> torch.Tensor:
 def and_popcount_pairwise(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``(Q, W) x (C, W) -> (Q, C)`` int32 popcount(AND) matrix.
 
-    The plain version of the Hopper score kernel's contraction. The
-    (Q, chunk, W) intermediate is bounded by scoring the corpus in chunks.
+    The plain version of the Hopper score kernel's contraction: the words
+    unpack to {0, 1} bits and one float64 matrix product counts the bits two
+    rows share. It is exact: every partial sum is an integer of at most 32W,
+    far below 2^53, and float64 products have no reduced-precision mode. The
+    corpus unpacks a block of rows at a time.
     """
     q, w = a.shape
     c = b.shape[0]
     out = torch.empty((q, c), dtype=torch.int32, device=a.device)
-    chunk = max(1, _PAIRWISE_CHUNK_ELEMS // max(q * w, 1))
-    for lo in range(0, c, chunk):
-        both = a[:, None, :] & b[None, lo : lo + chunk, :]
-        out[:, lo : lo + chunk] = popcount(both).sum(dim=-1, dtype=torch.int32)
+    ua = unpack_bits(a, 32 * w).to(torch.float64)
+    step = max(1, _PAIRWISE_BLOCK_ELEMS // max(32 * w, 1))
+    for lo in range(0, c, step):
+        ub = unpack_bits(b[lo : lo + step], 32 * w).to(torch.float64)
+        out[:, lo : lo + step] = (ua @ ub.T).to(torch.int32)
     return out
 
 
@@ -175,11 +179,12 @@ def band_shape(n_words: int, n_bands: int):
     return -(-w // wpb), wpb
 
 
-def _mul_prime(h: torch.Tensor) -> torch.Tensor:
-    """``h * PRIME mod 2^32`` for int64 ``h`` in ``[0, 2^32)``. The full
-    product reaches 2^64 and would overflow int64, so PRIME is split into
-    16-bit halves: ``h*lo < 2^48`` and ``(h*hi mod 2^16) << 16 < 2^32``."""
-    return (h * _PRIME_LO + (((h * _PRIME_HI) & 0xFFFF) << 16)) & _U32
+def mul_u32(h: torch.Tensor, c) -> torch.Tensor:
+    """``h * c mod 2^32`` for int64 ``h`` and ``c`` (an int or an int64
+    tensor) in ``[0, 2^32)``. The full product reaches 2^64 and would
+    overflow int64, so ``c`` is split into 16-bit halves: ``h*lo < 2^48``
+    and ``(h*hi mod 2^16) << 16 < 2^32``."""
+    return (h * (c & 0xFFFF) + (((h * (c >> 16)) & 0xFFFF) << 16)) & _U32
 
 
 def band_hash(packed: torch.Tensor, n_bands: int) -> torch.Tensor:
@@ -194,7 +199,7 @@ def band_hash(packed: torch.Tensor, n_bands: int) -> torch.Tensor:
     they agree on that whole word group (up to 2^-32 collisions). The keys
     come back as int32 holding the uint32 bits, like packed words; the
     arithmetic runs on int64 values in ``[0, 2^32)``, so ``>> 15`` is a
-    logical shift and the multiply is :func:`_mul_prime`'s."""
+    logical shift and the multiply is :func:`mul_u32`'s."""
     bsz, w = packed.shape
     nb_eff, wpb = band_shape(w, n_bands)
     words = packed.to(torch.int64) & _U32
@@ -205,7 +210,7 @@ def band_hash(packed: torch.Tensor, n_bands: int) -> torch.Tensor:
     band = torch.arange(1, nb_eff + 1, dtype=torch.int64, device=packed.device)
     h = ((band * _BAND_SEED) & _U32).expand(bsz, nb_eff)
     for t in range(wpb):
-        h = _mul_prime(h ^ grp[:, :, t])
+        h = mul_u32(h ^ grp[:, :, t], _BAND_PRIME)
         h = h ^ (h >> 15)
     return _to_int32_bits(h)
 

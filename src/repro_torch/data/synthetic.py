@@ -1,9 +1,11 @@
 """Synthetic sparse-binary corpora with the statistics of the paper's datasets.
 
-A verbatim numpy copy of ``repro.data.synthetic``'s corpus generator (the
-same seed gives the same rows), kept here so the port imports nothing of the
-JAX package. Word frequencies follow a Zipf power law and document lengths
-are log-normal; outputs are padded int32 index matrices (pad = -1).
+A verbatim numpy copy of ``repro.data.synthetic``'s corpus and similar-pair
+generators (the same seed gives the same rows), kept here so the port imports
+nothing of the JAX package. Word frequencies follow a Zipf power law and
+document lengths are log-normal; the pair generator builds pairs at a set
+Jaccard level for the estimators' error curves. Outputs are padded int32
+index matrices (pad = -1).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-__all__ = ["DatasetSpec", "DATASETS", "generate_corpus"]
+__all__ = ["DatasetSpec", "DATASETS", "generate_corpus", "generate_similar_pairs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,3 +63,31 @@ def generate_corpus(spec: DatasetSpec, seed: int = 0) -> Tuple[np.ndarray, np.nd
         idx[i, : len(uniq)] = uniq
         lengths[i] = len(uniq)
     return idx, lengths
+
+
+def generate_similar_pairs(
+    spec: DatasetSpec, jaccard: float, n_pairs: int, seed: int = 0
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pairs (a_idx, b_idx) each (n_pairs, P) with E[JS(a,b)] ~= jaccard.
+
+    Construction: |common| = round(J/(1+J) * 2m), each side padded with
+    disjoint unique extras to m elements; exact JS = c / (2m - c).
+    """
+    rng = np.random.default_rng(seed)
+    m = spec.mean_nnz
+    c = int(round(2 * m * jaccard / (1.0 + jaccard)))
+    c = min(c, m)
+    extra = m - c
+    pad = int(spec.max_nnz)
+    a_idx = np.full((n_pairs, pad), -1, np.int32)
+    b_idx = np.full((n_pairs, pad), -1, np.int32)
+    probs = _zipf_weights(spec.d, spec.zipf_a)
+    for i in range(n_pairs):
+        words = rng.choice(spec.d, size=c + 2 * extra + 64, replace=False, p=probs)
+        words = words[: c + 2 * extra]
+        a = np.sort(np.concatenate([words[:c], words[c : c + extra]]))
+        b = np.sort(np.concatenate([words[:c], words[c + extra :]]))
+        a_idx[i, : len(a)] = a
+        b_idx[i, : len(b)] = b
+    true_js = c / max(2 * m - c, 1)
+    return a_idx, b_idx, np.full(n_pairs, true_js, np.float64)

@@ -12,6 +12,8 @@ prefilter's LSH keys):
                       counterpart of the JAX ``pallas`` backend.
   * ``auto``          alias for ``cuda``.
 
+Further names come in through :func:`register_backend`.
+
 Results follow one order: score descending, ties to the lower doc id;
 ``corpus_valid`` masks rows out; slots past the retrievable corpus hold
 score -inf / id -1. ``torch.topk`` promises no order among ties, so every
@@ -29,7 +31,7 @@ from ..core import binsketch, counting, estimators, packed as pk
 from ..hopper import ops, ref
 
 __all__ = ["Backend", "ReferenceBackend", "CudaBackend", "available_backends",
-           "get_backend"]
+           "get_backend", "register_backend"]
 
 
 class Backend(Protocol):
@@ -180,11 +182,13 @@ class CudaBackend:
         return ops.band_hash(packed, int(n_bands))
 
 
-_REGISTRY: Dict[str, Callable[[], Backend]] = {
-    "reference": ReferenceBackend,
-    "cuda": CudaBackend,
-    "auto": CudaBackend,
-}
+_REGISTRY: Dict[str, Callable[[], Backend]] = {}
+
+
+def register_backend(name: str, factory: Callable[[], Backend]) -> None:
+    """Make ``get_backend(name)`` return ``factory()``; a name registered
+    again takes the new factory."""
+    _REGISTRY[name] = factory
 
 
 def available_backends():
@@ -202,3 +206,8 @@ def get_backend(name=None) -> Backend:
         except KeyError:
             raise ValueError(f"unknown backend {name!r}; have {available_backends()}") from None
     return name
+
+
+register_backend("reference", ReferenceBackend)
+register_backend("cuda", CudaBackend)
+register_backend("auto", CudaBackend)

@@ -359,3 +359,72 @@ def test_probe_truth_on_a_side_stream(dev):
     ids = eng.query(queries, 5)[1].cpu().numpy()
     assert got == sum(len(set(ids[i].tolist()) & set(truth[i].tolist()))
                       for i in range(16)) / (16 * 5)
+
+
+def test_dedup_on_the_card_equals_the_plain_path(dev):
+    """``find_near_duplicates`` on the card (build and score kernels) returns
+    the CPU path's pairs in the same order, estimates within rtol 1e-5 /
+    atol 1e-6, and finds the planted duplicates; both kernels launch."""
+    import numpy as np
+
+    from repro_torch.core import BinSketchConfig, make_mapping
+    from repro_torch.data import find_near_duplicates
+    from repro_torch.data.synthetic import DATASETS, generate_corpus, generate_similar_pairs
+
+    spec = DATASETS["tiny"]
+    a, b, _ = generate_similar_pairs(spec, jaccard=0.95, n_pairs=8, seed=3)
+    idx, _ = generate_corpus(spec, seed=9)
+    docs = np.concatenate([idx[:200], a, b])  # duplicates at (200 + k, 208 + k)
+    cfg = BinSketchConfig.from_sparsity(spec.d, int((docs >= 0).sum(1).max()), 0.05)
+    mapping = make_mapping(cfg, seed=0, device="cpu")
+    before = dict(ops.launches)
+    got = find_near_duplicates(docs, spec.d, threshold=0.5, chunk=64, device=dev,
+                               mapping=mapping)
+    assert ops.launches["sketch_score"] - before["sketch_score"] == 4  # 216 rows, chunk 64
+    assert ops.launches["build_sketch"] > before["build_sketch"]
+    want = find_near_duplicates(docs, spec.d, threshold=0.5, chunk=64, device="cpu",
+                                mapping=mapping)
+    assert [(i, j) for i, j, _ in got] == [(i, j) for i, j, _ in want]
+    torch.testing.assert_close(torch.tensor([s for *_, s in got]),
+                               torch.tensor([s for *_, s in want]), rtol=1e-5, atol=1e-6)
+    assert {(200 + k, 208 + k) for k in range(8)} <= {(i, j) for i, j, _ in got}
+
+
+@pytest.mark.parametrize("name", ["bcs", "minhash", "doph", "oddsketch", "simhash", "cbe"])
+def test_baseline_on_the_card_equals_the_cpu(dev, name):
+    """Each baseline's sketch on the card equals the same function on the
+    CPU over the same parameters: bit for bit, CBE's bits wherever the
+    projection is more than 1e-3·‖x‖ from 0."""
+    import numpy as np
+
+    from repro_torch.core.baselines import bcs, cbe, doph, minhash, oddsketch, simhash
+    from repro_torch.data.synthetic import DATASETS, generate_corpus
+
+    spec = DATASETS["tiny"]
+    rows = torch.from_numpy(generate_corpus(spec, seed=0)[0][:64])
+    d, k = spec.d, 300
+    make, run = {
+        "bcs": (lambda dv: bcs.make_mapping(d, k, device=dv),
+                lambda p, x: bcs.sketch_indices(p, k, x)),
+        "minhash": (lambda dv: minhash.make_hashes(k, device=dv), minhash.sketch_indices),
+        "doph": (lambda dv: doph.make_hashes(device=dv),
+                 lambda p, x: doph.sketch_indices(p, k, x)),
+        "oddsketch": (lambda dv: oddsketch.make_hashes(k, device=dv),
+                      lambda p, x: oddsketch.sketch_indices(p, 517, x)),
+        "simhash": (lambda dv: simhash.make_hashes(k, device=dv), simhash.sketch_indices),
+        "cbe": (lambda dv: cbe.make_params(d, device=dv),
+                lambda p, x: cbe.project_indices(p, k, d, x)),
+    }[name]
+    on_card, on_cpu = run(make(dev), rows.to(dev)), run(make("cpu"), rows)
+    on_card = on_card if isinstance(on_card, tuple) else (on_card,)
+    on_cpu = on_cpu if isinstance(on_cpu, tuple) else (on_cpu,)
+    for g, w in zip(on_card, on_cpu):
+        g = g.cpu()
+        if name == "cbe":
+            norm = (rows >= 0).sum(1, keepdim=True).double().sqrt()
+            clear = w.double().abs() > 1e-3 * norm
+            assert clear.double().mean() > 0.99
+            assert torch.equal((g >= 0)[clear], (w >= 0)[clear])
+        else:
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert np.isfinite(on_card[0].float().cpu().numpy()).all()

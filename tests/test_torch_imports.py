@@ -16,7 +16,9 @@ PORT = REPO / "src" / "repro_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "examples" / "quickstart_torch.py",
+                                         REPO / "examples" / "ranking_service_torch.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -50,12 +52,18 @@ def test_port_imports_without_cuda_and_default_raises(monkeypatch):
                 "repro_torch.obs.clock", "repro_torch.obs.metrics",
                 "repro_torch.engine.supervision", "repro_torch.checkpoint.manager",
                 "repro_torch.obs.trace", "repro_torch.obs.probe",
-                "repro_torch.engine.lifecycle"):
+                "repro_torch.engine.lifecycle", "repro_torch.core.baselines.bcs",
+                "repro_torch.core.baselines.minhash", "repro_torch.core.baselines.doph",
+                "repro_torch.core.baselines.oddsketch", "repro_torch.core.baselines.simhash",
+                "repro_torch.core.baselines.cbe", "repro_torch.core.categorical",
+                "repro_torch.data.dedup"):
         assert new in names
 
     import repro_torch
     from repro_torch import convert
     from repro_torch.core import BinSketchConfig, make_mapping
+    from repro_torch.core.baselines import bcs, cbe, doph, minhash, oddsketch, simhash
+    from repro_torch.data.dedup import find_near_duplicates
     from repro_torch.data.synthetic import DATASETS
     from repro_torch.launch.serve import serve
     from repro_torch.obs.probe import exact_topk
@@ -67,7 +75,14 @@ def test_port_imports_without_cuda_and_default_raises(monkeypatch):
                  lambda: convert.mapping_from_reference(np.zeros(100, np.int32), cfg),
                  lambda: convert.packed_from_reference(np.zeros((1, 2), np.uint32)),
                  lambda: exact_topk(idx, idx, 1),
-                 lambda: serve(DATASETS["tiny"])):
+                 lambda: serve(DATASETS["tiny"]),
+                 lambda: find_near_duplicates(idx, 100),
+                 lambda: bcs.make_mapping(100, 64),
+                 lambda: minhash.make_hashes(4),
+                 lambda: doph.make_hashes(),
+                 lambda: oddsketch.make_hashes(4),
+                 lambda: simhash.make_hashes(4),
+                 lambda: cbe.make_params(100)):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     assert repro_torch.resolve_device("cpu").type == "cpu"

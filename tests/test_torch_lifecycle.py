@@ -14,7 +14,9 @@ score ties read from the port's own scores, at the tolerance of the port's
 other JAX comparisons, rtol 2e-3 / atol 1e-3: PyTorch's float32 ``log`` and
 XLA's differ in the last ulp, which the estimator's inversion magnifies to
 about 3e-5; see ``tests/test_torch_engine.py``). The controller-under-fault case of
-``tests/test_faults.py`` is replayed the same way. Then what only the port
+``tests/test_faults.py`` is replayed the same way; its hung-merge case runs
+on the port alone, on a ``ManualClock`` (the reference's hang is a real-time
+delay, the port's watchdog reads the supervisor's clock). Then what only the port
 has: a device fault raised inside a tick propagates (and is counted in
 ``health()``) where every other failure is recorded and swallowed; a tick
 with a held job returns without reaching ``wait_compaction``; and ``serve
@@ -803,6 +805,52 @@ def test_tick_with_a_held_job_never_blocks(tri):
     assert r["swapped"] and r["action"]["kind"] == "merge"
     assert store.wait_compaction() is not None and len(store.sealed) == 1
     assert store.sealed[0].n_live == 95
+
+
+def test_controller_hung_merge_abandoned_then_tier_retried(tri):
+    """``tests/test_faults.py``'s hung-merge case, on a ``ManualClock``: the
+    merge the controller launches is held (``_hold``) past the watchdog's
+    deadline, and the next tick's poll abandons it: one abandon, no retry,
+    nothing swapped, and the same tick launches the still-over-fanout tier
+    again. Once the hang clears, the zombie's late result is dropped and the
+    new merge lands: one sealed segment of 96 live rows, two merges."""
+    clock = ManualClock()
+    sup = JobSupervisor(SupervisionPolicy(max_retries=3, deadline=0.05, backoff_base=0.0,
+                                          backoff_cap=0.0), clock=clock)
+    eng = Port(tri).build(n=96, seal_rows=24, supervisor=sup)  # 4 segments == fanout
+    ctl = LifecycleController(eng, ControllerPolicy(tier_min_rows=24))
+    store = eng.store
+    hold = threading.Event()
+
+    def held_once(*a, **kw):  # the controller's first merge hangs until released
+        del store.compact_async
+        return store.compact_async(*a, _hold=hold, **kw)
+
+    store.compact_async = held_once
+    q = tri[2][100:104]
+    try:
+        r = ctl.tick(now=1.0)
+        assert r["action"]["kind"] == "merge"  # launched into the hang
+        zombie = store._compaction.job._job  # the attempt: the abandon drops the job's reference
+        eng.query(q, 3)  # inside the deadline: serving never blocks on the hung worker
+        assert store.job_pending == "compact" and not sup.health()["abandoned"]
+        clock.advance(1.0)  # past the deadline
+        r = ctl.tick(now=2.0)
+        h = sup.health()
+        assert h["abandoned"] == 1
+        assert h["jobs"]["compact"]["retries"] == 0  # hangs are not retried
+        assert not r["swapped"]
+        assert r["action"]["kind"] == "merge", \
+            "the abandoning tick must re-launch the over-fanout tier"
+        fresh = store._compaction.job
+    finally:
+        hold.set()
+    join_attempt(zombie)
+    join_attempt(fresh)
+    assert store.wait_compaction() is not None
+    assert len(store.sealed) == 1
+    assert store.sealed[0].n_live == 96
+    assert ctl.merges == 2
 
 
 # ---------------------------------------------------------- serve --autopilot

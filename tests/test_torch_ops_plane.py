@@ -11,7 +11,8 @@ degradation, the full chaos cycle, and faults as metric deltas (the registry
 half; the trace half waits for the port's telemetry). Its checkpoint cases
 are in ``tests/test_torch_checkpoint.py``, its first lifecycle-controller case
 in ``tests/test_torch_lifecycle.py``. Not ported: the placement case (the
-port has no placement yet) and the hung-merge controller case.
+port has no placement yet); the hung-merge controller case is in
+``tests/test_torch_lifecycle.py``.
 
 Every supervisor runs on a ``ManualClock``: retries use a zero backoff and the
 watchdog fires when the test advances the clock, so no case waits on real
@@ -83,11 +84,15 @@ def _supervisor(policy=FAST):
 def join_attempt(job, timeout=30.0):
     """Join a supervised job's attempt in flight, if it runs on a thread, for
     at most ``timeout`` seconds: a loop that polls between joins then ends on
-    the job's state, however loaded the host, never on a count of sleeps."""
-    thread = getattr(getattr(job, "_job", None), "_thread", None)
+    the job's state, however loaded the host, never on a count of sleeps.
+    ``job`` may also be the attempt itself (``job._job``, taken before an
+    abandon drops the job's reference to it), to join a zombie."""
+    attempt = getattr(job, "_job", job)  # either package's job, or an attempt
+    thread = getattr(attempt, "_thread", None)
     if thread is not None:
         thread.join(timeout)
-        assert not thread.is_alive(), f"a {job.op} attempt still runs after {timeout} s"
+        what = getattr(job, "op", "an abandoned")
+        assert not thread.is_alive(), f"{what} attempt still runs after {timeout} s"
 
 
 # ------------------------------------------------------------- fault plans
@@ -234,6 +239,7 @@ def test_watchdog_abandons_stalled_job_without_swapping(tiny):
     sealed_before = list(store.sealed)
     hold = threading.Event()
     assert store.compact_async(_hold=hold) is True
+    zombie = store._compaction.job._job  # the attempt: the abandon drops the job's reference
     q = idx[100:104]
     eng.query(q, 3)  # inside the deadline: still running
     assert store.job_pending == "compact" and not sup.health()["abandoned"]
@@ -243,7 +249,7 @@ def test_watchdog_abandons_stalled_job_without_swapping(tiny):
     assert h["abandoned"] == 1 and h["jobs"]["compact"]["retries"] == 0
     assert store.job_pending is None
     hold.set()  # let the zombie finish: its result must be dropped
-    time.sleep(0.05)
+    join_attempt(zombie)
     eng.query(q, 3)
     assert store.sealed == sealed_before
     assert "deadline" in h["last_error"]["error"]
