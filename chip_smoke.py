@@ -118,6 +118,38 @@ Phases, each fatal on failure (nothing is caught while the run goes on):
    counts form of the score kernel also beside ``torch._int_mm`` on the same
    bits expanded to int8 (the library yardstick of both count kernels).
 
+2i. Multi-device serving on one card, run after phase 3 (timings first: in
+   a run with 2i before 2h, phase 3's first profiler window lost kernels),
+   launch counters zeroed before and read after (``build_sketch``,
+   ``sketch_topk``, ``rebucket`` and ``band_hash`` must launch). *(a)*
+   ``serve(sharded=True)`` at phase 2b's configuration (a mesh of every
+   card): its ids equal phase 2b's served ids up to score
+   ties and its recall before and after distillation equals phase 2b's.
+   *(b)* The same corpus sealed every 32,768 rows (10 segments; a
+   rehearsal's smaller corpus every n // 9 rows, and its slab-size checks
+   skipped), 10% deleted and 5% updated (into the head), the older half
+   distilled to N // 2, 8 bands; on a mesh of 4 shards of ``cuda:0`` (whole
+   segments placed by live rows, one slab per shard and width, every slab
+   past the top-k kernel's 8192-row crossover, 9 top-k launches a placed
+   batch) the placed exhaustive, placed prefiltered and sliced passes
+   over 1,024 queries in batches of 256 are
+   held to ``query`` with the same prefilter flag (up to score ties; a
+   prefiltered batch only where neither path hit the escape hatch), and the
+   prefiltered ones to the exact top-k over the slab candidates (the plain
+   band hash, the hatch acting on a whole width slab). A device-local
+   compaction (the placement's groups) is held while 256 placed queries
+   and a round of 1,024 deletes and 512 updates land, then swapped; the
+   answers after it equal ``query``'s and no deleted doc comes back.
+   Readings: placement build seconds and resident bytes, warm q/s of the
+   single-device, placed and sliced passes, mask refreshes beside the
+   tombstone epochs (a warm pass with no epoch moved must refresh nothing).
+   *(c)* The sliced path on an append-only store of the 300,000 docs over 7
+   shards (300,006 padded rows), equal to ``query``, the tail shard's docs
+   retrievable. *(d)* A mesh of ``(cuda:0, cpu)`` at 4,096 docs: each
+   shard's slab on its own device (the CPU shard runs the plain versions),
+   placed and sliced answers equal to the card's ``query``. Printed as
+   ``{"sharded": ...}``; each kernel row gets ``sharded_launches``.
+
 2f. The operations plane, run after phase 3 (late in a long run
    ``torch.profiler`` loses kernels, so the timings come first), at phase 2b's
    configuration with ``BandPolicy(n_bands=8)``. Phases 2–2e, run with no
@@ -187,7 +219,8 @@ The line before the last lists the seven kernels as JSON (every phase's
 kernel rows carry ``ms`` and ``kernel_ms``; ``rebucket``'s also its launch
 floor, ``floor_ms`` and ``floor_kernel_ms`` on a (1, 1)-word input), the one
 before it the card; before those, ``{"serve": ...}``, ``{"mutable": ...}``,
-``{"prefilter": ...}``, ``{"hash_mode": ...}``, ``{"near_duplicates": ...}``,
+``{"prefilter": ...}``, ``{"hash_mode": ...}``, ``{"sharded": ...}``,
+``{"near_duplicates": ...}``,
 ``{"ops_plane": ...}`` and
 ``{"autopilot": ...}`` lines with the end-to-end readings; the last line is the device summary.
 Every ``serve`` of the run draws each corpus once: :func:`share_corpora`
@@ -253,27 +286,34 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def profiled_calls(torch, fn, calls: int = 20, warm: int = 10) -> list:
+def profiled_calls(torch, fn, calls: int = 20, warm: int = 10, attempts: int = 3) -> list:
     """The device kernels of ``calls`` calls of ``fn`` as ``torch.profiler``
     records them (CUDA activity): for each call, in order, its kernels'
     (name, milliseconds).
 
     Late in a long run the profiler was seen to lose the first four kernels
-    of a window, whatever the time between its start and theirs. So the
-    window opens with ``warm`` calls, then 100 ms of nothing, then the
-    measured calls, each ended by a sync, then 100 ms more; the measured
-    kernels are those after the last gap of over 50 ms. In order of start
-    they must fall into ``calls`` equal runs of the same names, else the run
+    of a window, whatever the time between its start and theirs, and now
+    and then kernels inside it. So the window opens with ``warm`` calls,
+    then 100 ms of nothing, then the measured calls, each ended by a sync,
+    then 100 ms more; the measured kernels are those after the last gap of
+    over 50 ms. In order of start they must fall into ``calls`` equal runs
+    of the same names; a window that recorded a count of kernels no equal
+    runs make is opened again, up to ``attempts`` windows, and then the run
     fails, as it does if a call launched none."""
+    from torch.autograd import DeviceType
 
-    measured, kernels, events = profiler_window(torch, fn, calls, warm)
-    if not measured or len(measured) % calls:
+    for attempt in range(1, attempts + 1):
+        measured, kernels, events = profiler_window(torch, fn, calls, warm)
+        if measured and not len(measured) % calls:
+            break
         launched = sum(e.device_type == DeviceType.CPU and "LaunchKernel" in e.name
                        for e in events)
-        fail(f"profiler: {len(measured)} kernels recorded over {calls} calls "
-             f"({len(kernels)} in the window, {launched} host launch events; "
-             f"{sorted({e.name[:60] for e in kernels})})")
-    from torch.autograd import DeviceType
+        what = (f"profiler window {attempt} of {attempts}: {len(measured)} kernels recorded "
+                f"over {calls} calls ({len(kernels)} in the window, {launched} host launch "
+                f"events; {sorted({e.name[:60] for e in kernels})})")
+        if attempt == attempts:
+            fail(what)
+        print(what + "; opened again")
 
     per = len(measured) // calls
     runs = [[(e.name, e.time_range.elapsed_us() / 1e3) for e in measured[i * per : (i + 1) * per]]
@@ -487,7 +527,8 @@ def view_truth(torch, engine, queries, now, backend=None):
 
     ref_be, cfg = backend or ReferenceBackend(), engine.cfg
     qs = ref_be.sketch(cfg, engine.store.mapping, queries)
-    truth = torch.full((len(queries), engine.store.next_id), float("-inf"),
+    n_ids = getattr(engine.store, "next_id", engine.store.size)  # append-only: row == id
+    truth = torch.full((len(queries), n_ids), float("-inf"),
                        device=queries.device)
     for v in engine.store.segment_views(now):
         nb = v.n_bins or cfg.n_bins
@@ -1617,6 +1658,405 @@ def autopilot_phase(torch, dev, spec, n_bins: int) -> dict:
     return readings
 
 
+SHARDED_SEAL_ROWS = 32_768  # rows of a sealed segment in phase 2i's many-segment store
+
+
+def slab_candidate_ids(torch, engine, queries, now) -> np.ndarray:
+    """Doc ids the placed prefilter must score for the batch ``queries``,
+    found without the bucket index (the plain band hash, as
+    :func:`candidate_ids`), with the escape hatch acting on a whole width
+    slab as the placed path applies it: one indexed segment past the hatch
+    puts every live row of its width among the candidates."""
+    from repro_torch.core import packed as pk
+    from repro_torch.engine import ReferenceBackend
+
+    store, cfg, pol = engine.store, engine.cfg, engine.store.band_policy
+    ref_be = ReferenceBackend()
+    qs = ref_be.sketch(cfg, store.mapping, queries)
+    by_width = {}
+    for seg in store.sealed:
+        if seg.n_rows == 0:
+            continue
+        live = seg.valid.copy()
+        if store.ttl is not None and now is not None:
+            live &= seg.born + store.ttl > now
+        rows, hatch = live, False
+        if seg.band_index is not None:
+            nb = seg.n_bins or cfg.n_bins
+            qk = pk.band_hash(ref_be.rebucket(qs, cfg.n_bins, nb), pol.n_bands)
+            rk = pk.band_hash(seg.sketches, pol.n_bands)
+            hit = torch.zeros(seg.n_rows, dtype=torch.bool, device=rk.device)
+            for t in range(rk.shape[1]):
+                hit |= torch.isin(rk[:, t], qk[:, t])
+            rows = hit.cpu().numpy() & live
+            hatch = bool(rows.sum() > pol.max_candidate_frac * seg.n_rows)
+        w = by_width.setdefault(seg.n_bins or cfg.n_bins, {"cand": [], "live": [], "hatch": False})
+        w["cand"].append(seg.ids[rows])
+        w["live"].append(seg.ids[live])
+        w["hatch"] |= hatch
+    out = [np.concatenate(w["live"] if w["hatch"] else w["cand"]) for w in by_width.values()]
+    h = store.head
+    live = h.valid[: h.size].copy()
+    if store.ttl is not None and now is not None:
+        live &= h.born[: h.size] + store.ttl > now
+    out.append(h.ids[: h.size][live])
+    return np.sort(np.concatenate(out))
+
+
+def sharded_batches(torch, engine, mesh, queries, now, batch=256, **kw):
+    """(scores, ids) of ``queries`` through ``query_sharded`` over ``mesh`` in
+    batches of ``batch`` at k=10, and the warm rate in queries per second
+    (host clock between syncs)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = [engine.query_sharded(mesh, "data", queries[s : s + batch], 10, now=now, **kw)
+           for s in range(0, len(queries), batch)]
+    torch.cuda.synchronize()
+    qps = len(queries) / (time.perf_counter() - t0)
+    return torch.cat([g[0] for g in got]), torch.cat([g[1] for g in got]), qps
+
+
+def held_to(torch, engine, queries, now, got, want, what: str) -> float:
+    """``got`` against ``want`` over the batches of 256 of ``queries``, up to
+    score ties in the exhaustive scores over the store as it stands
+    (:func:`view_truth` through the engine's backend, a batch at a time).
+    Returns the largest score difference."""
+    err = 0.0
+    for s in range(0, len(queries), 256):
+        truth = view_truth(torch, engine, queries[s : s + 256], now, engine.backend)
+        err = max(err, check_topk(torch, (got[0][s : s + 256], got[1][s : s + 256].long()),
+                                  (want[0][s : s + 256], want[1][s : s + 256].long()), truth,
+                                  f"{what}, batch {s // 256}"))
+        del truth
+    return err
+
+
+def sharded_serve_part(torch, dev, spec, n_bins: int, sync_ref: dict, mut: dict) -> dict:
+    """Phase 2i (a): ``serve(sharded=True)`` at phase 2b's configuration, held
+    to phase 2b's served answers and recall."""
+    from repro_torch.launch.serve import serve
+
+    out = serve(spec, queries=1024, topk=10, rho=0.05, batch=256, ingest_batch=16384,
+                backend="cuda", device=dev, mutate_rate=0.3, distill=(n_bins // 2, n_bins // 4),
+                sharded=True)
+    torch.cuda.synchronize()
+    engine, now = out["engine"], out["serve_now"]
+    cards = (tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+             if dev.type == "cuda" else (dev,))
+    if out["mesh"].devices != cards:
+        fail(f"serve's mesh {out['mesh']} is not every card")
+    if not np.array_equal(out["queries"], sync_ref["queries"]) or now != sync_ref["now"]:
+        fail("phase 2i's queries differ from phase 2b's")
+    queries = torch.from_numpy(out["queries"]).to(dev)
+    err = held_to(torch, engine, queries, now,
+                  (torch.from_numpy(out["scores"]).to(dev), torch.from_numpy(out["ids"]).to(dev)),
+                  (torch.from_numpy(sync_ref["scores"]).to(dev),
+                   torch.from_numpy(sync_ref["ids"]).to(dev)),
+                  "serve(sharded=True) vs phase 2b's serve")
+    recalls = (out["pre_distill"]["recall"], out["recall"])
+    want = (mut["recall_before_distill"], mut["recall_after_distill"])
+    if recalls != want:
+        fail(f"the sharded serve's recall {recalls} differs from phase 2b's {want}")
+    hist = out["metrics"]["histograms"].get("query.query_sharded_s", {})
+    if hist.get("count") != 8:
+        fail(f"serve(sharded=True) recorded {hist.get('count')} calls in query.query_sharded_s, "
+             "not 8")
+    counters = out["metrics"]["counters"]
+    bit_equal = bool(np.array_equal(out["ids"], sync_ref["ids"])
+                     and np.array_equal(out["scores"], sync_ref["scores"]))
+    print(f"phase 2i serve: recall {recalls[0]} before and {recalls[1]} after distillation "
+          f"(phase 2b's); answers {'bit-equal' if bit_equal else 'equal up to score ties'} "
+          f"to phase 2b's; {counters.get('placement.builds')} placement builds")
+    assert_healthy(engine, "2i serve")
+    return {"recall_before_distill": recalls[0], "recall_after_distill": recalls[1],
+            "bit_equal_to_2b": bit_equal, "max_abs_err": err,
+            "first_queries_per_s": out["queries_per_s"],
+            "pre_distill_first_queries_per_s": out["pre_distill"]["queries_per_s"],
+            "placement_builds": counters.get("placement.builds"),
+            "mask_refreshes": counters.get("placement.mask_refreshes"),
+            "queries": queries}
+
+
+def many_segment_part(torch, dev, cfg, mapping, corpus, fresh_rows, queries) -> dict:
+    """Phase 2i (b): a store sealed every 32,768 rows, 10% deleted and 5%
+    updated, its older half distilled to N // 2, with 8 bands, served on four
+    shards of ``cuda:0``: placed exhaustive, placed prefiltered and sliced
+    passes held to ``query`` with the same prefilter flag, then a held
+    device-local compaction while queries and mutations land."""
+    from repro_torch.engine import (BandPolicy, CudaBackend, DistillPolicy, QueryPlanner,
+                                    SketchEngine)
+    from repro_torch.hopper import ops, ref
+    from repro_torch.parallel import make_mesh
+
+    n = len(corpus)
+    n1 = cfg.n_bins // 2
+    # a rehearsal's smaller corpus (--n-points) still makes about 10
+    # segments; its slabs then fall under the top-k crossover, whose checks
+    # hold only at scale
+    seal_rows = min(SHARDED_SEAL_ROWS, max(n // 9, 1024))
+    at_scale = n >= 9 * SHARDED_SEAL_ROWS
+    engine = SketchEngine.build(cfg, mapping, backend="cuda", mutable=True,
+                                seal_rows=seal_rows, band_policy=BandPolicy(n_bands=8),
+                                planner=QueryPlanner(min_batch=8, max_batch=256),
+                                capacity=seal_rows)
+    store = engine.store
+    reg = engine.enable_metrics()
+    t0 = time.perf_counter()
+    for s in range(0, n, seal_rows):  # the older half born at 0, the rest at 10
+        engine.add(corpus[s : s + seal_rows], batch=16384, now=0.0 if s < n // 2 else 10.0)
+    engine.seal()  # the tail
+    rng = np.random.default_rng(11)
+    victims = rng.choice(n, n * 15 // 100, replace=False)
+    dele, upd = victims[: n // 10], victims[n // 10 :]
+    engine.delete(dele.tolist())
+    engine.update(upd.tolist(), fresh_rows[upd], now=10.0)
+    if engine.distill(DistillPolicy(widths=(n1,), min_age=5.0), now=10.0) is None:
+        fail("phase 2i: the distillation of the older segments did not run")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    widths = sorted({seg.n_bins or cfg.n_bins for seg in store.sealed}, reverse=True)
+    if widths != [cfg.n_bins, n1]:
+        fail(f"phase 2i: sealed widths {widths}, not [{cfg.n_bins}, {n1}]")
+    mesh = make_mesh((4,), ("data",))
+    if mesh.devices != (dev,) * 4:
+        fail(f"make_mesh((4,)) on one card gave {mesh.devices}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    placement = engine._ensure_placement(mesh, "data")
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    if placement.widths != widths or any(t.device != dev for s in placement.slabs
+                                         for t in s.sketches + s.fills + s.ids):
+        fail(f"phase 2i: placement widths {placement.widths} or a slab off the card")
+    small = [s.n_local for s in placement.slabs if s.n_local < CudaBackend.topk_crossover]
+    if small and at_scale:
+        fail(f"phase 2i: shard slabs of {small} rows sit under the top-k kernel's crossover")
+    print(f"phase 2i store: {len(store.sealed)} sealed segments at widths "
+          f"{[seg.n_bins or cfg.n_bins for seg in store.sealed]}, head {store.head.size} rows, "
+          f"live {store.size}; placement on 4 shards of {dev}: {placement.assign}, slabs of "
+          f"{[s.n_local for s in placement.slabs]} rows a shard, {placement.nbytes} bytes, "
+          f"built in {place_s:.3f}s")
+
+    # ---- exhaustive: placed and sliced against query
+    single_ex = serve_batches(torch, engine, queries, None, prefilter=False)
+    mid = dict(ops.launches)
+    placed_ex = sharded_batches(torch, engine, mesh, queries, None, prefilter=False)
+    placed_topk = ops.launches["sketch_topk"] - mid["sketch_topk"]
+    # four batches, each a pass per shard and width plus the head
+    if at_scale and placed_topk != 4 * (4 * len(widths) + 1):
+        fail(f"the placed pass launched sketch_topk {placed_topk} times, not "
+             f"{4 * (4 * len(widths) + 1)}")
+    sliced = sharded_batches(torch, engine, mesh, queries, None, use_placement=False)
+    errs = {"placed": held_to(torch, engine, queries, None, placed_ex, single_ex,
+                              "placed exhaustive vs query"),
+            "sliced": held_to(torch, engine, queries, None, sliced, single_ex,
+                              "sliced vs query")}
+
+    # ---- prefiltered: placed against query(prefilter=True) and the exact
+    # top-k over the slab candidates
+    totals = engine._fresh_prefilter_stats()
+    band_before = ops.launches["band_hash"]
+    compared = 0
+    errs["prefiltered"] = 0.0
+    for s in range(0, len(queries), 256):
+        qb = queries[s : s + 256]
+        sc, ix = engine.query_sharded(mesh, "data", qb, 10, prefilter=True)
+        st = dict(engine.last_prefilter_stats)
+        for key in totals:
+            totals[key] += st[key]
+        if st["banded_segments"] < 1:
+            fail(f"no segment was scanned banded on the placed path, batch {s // 256}: {st}")
+        truth = view_truth(torch, engine, qb, None, engine.backend)
+        cand = torch.from_numpy(slab_candidate_ids(torch, engine, qb, None)).to(dev)
+        masked = torch.full_like(truth, float("-inf"))
+        masked[:, cand] = truth[:, cand]
+        cols = torch.arange(truth.shape[1], dtype=torch.int32, device=dev).expand_as(truth)
+        want = ref.select_topk(masked, cols, 10)
+        errs["prefiltered"] = max(errs["prefiltered"], check_topk(
+            torch, (sc, ix.long()), (want[0], want[1].long()), truth,
+            "placed prefilter vs the exact top-k over the slab candidates"))
+        ws, wi = engine.query(qb, 10, prefilter=True)
+        if st["exhaustive_segments"] == 0 and engine.last_prefilter_stats[
+                "exhaustive_segments"] == 0:
+            compared += 1  # no escape hatch on either path: the same candidates
+            check_topk(torch, (sc, ix.long()), (ws, wi.long()), truth,
+                       "placed prefilter vs query(prefilter=True)")
+        del truth, masked
+    if ops.launches["band_hash"] == band_before:
+        fail("band_hash never launched on the placed prefiltered pass")
+    frac = totals["cand_rows"] / max(totals["seg_rows"], 1)
+
+    # ---- warm rates on the same engine (readings); no mask refresh without
+    # a tombstone epoch
+    refreshes = reg.counter("placement.mask_refreshes")
+    rates = {"single_exhaustive": serve_batches(torch, engine, queries, None,
+                                                prefilter=False)[2],
+             "placed_exhaustive": sharded_batches(torch, engine, mesh, queries, None,
+                                                  prefilter=False)[2],
+             "sliced": sharded_batches(torch, engine, mesh, queries, None,
+                                       use_placement=False)[2],
+             "single_prefiltered": serve_batches(torch, engine, queries, None,
+                                                 prefilter=True)[2],
+             "placed_prefiltered": sharded_batches(torch, engine, mesh, queries, None,
+                                                   prefilter=True)[2]}
+    if reg.counter("placement.mask_refreshes") != refreshes:
+        fail("a placed pass refreshed a validity mask with no tombstone epoch moved")
+    epochs = [store._valid_epoch]
+
+    # ---- a device-local compaction held while queries and mutations land
+    # the placement's groups, split by width; a lone tombstone-free segment
+    # (a distilled one: the fold drops dead rows) has nothing to merge
+    groups = [[i for i in g if store.sealed[i].n_bins == w] for g in placement.assign
+              for w in {store.sealed[i].n_bins for i in g}]
+    groups = [g for g in groups if len(g) > 1 or not store.sealed[g[0]].valid.all()]
+    hold = threading.Event()
+    engine.compact(background=True, _hold=hold)
+    job = store._compaction
+    if job is None or sorted(id(x) for x in job.segments) != sorted(
+            id(store.sealed[i]) for g in groups for i in g):
+        fail(f"the background compaction did not take the placement's device-local groups "
+             f"{groups}: it took segments {[[y is x for y in store.sealed].index(True) for x in job.segments]}")
+    qb = queries[:256]
+    during = engine.query_sharded(mesh, "data", qb, 10, prefilter=False)
+    errs["held"] = held_to(torch, engine, qb, None, during,
+                           engine.query(qb, 10, prefilter=False), "placed, compaction held")
+    sealed_live = np.concatenate([seg.ids[seg.valid] for seg in store.sealed])
+    pick = rng.choice(sealed_live, 1536, replace=False)
+    engine.delete(pick[:1024].tolist())
+    engine.update(pick[1024:].tolist(), fresh_rows[:512], now=10.0)
+    epochs.append(store._valid_epoch)
+    during = engine.query_sharded(mesh, "data", qb, 10, prefilter=False)
+    errs["held_mutated"] = held_to(torch, engine, qb, None, during,
+                                   engine.query(qb, 10, prefilter=False),
+                                   "placed, compaction held, after mutations")
+    hold.set()
+    stats = engine.wait_compaction()
+    if stats is None or stats["groups"] != len(groups):
+        fail(f"the device-local compaction merged {stats and stats['groups']} groups, not "
+             f"{len(groups)}")
+    after = sharded_batches(torch, engine, mesh, queries, None, prefilter=False)
+    errs["after_swap"] = held_to(torch, engine, queries, None, after,
+                                 serve_batches(torch, engine, queries, None, prefilter=False),
+                                 "placed after the device-local compaction vs query")
+    dead = torch.from_numpy(pick[:1024]).to(dev)
+    if torch.isin(after[1], dead).any():
+        fail("a doc deleted while the compaction was held came back after its swap")
+    epochs.append(store._valid_epoch)
+    print(f"phase 2i passes: placed, sliced and prefiltered answers equal query's (largest "
+          f"differences {errs}); candidate fraction {frac:.6f}, {compared} of 4 prefiltered "
+          f"batches free of the escape hatch and compared with query(prefilter=True); "
+          f"warm q/s {rates}; compaction {stats}")
+    assert_healthy(engine, "2i", allow=("prefilter_hatch",))
+    snap = reg.snapshot()["counters"]
+    return {"segments": sum(len(g) for g in placement.assign),
+            "segments_after_compaction": len(store.sealed), "widths": widths,
+            "live": int(store.size), "head_rows": int(store.head.size), "build_s": build_s,
+            "placement": {"assign": placement.assign, "n_local": [s.n_local
+                                                                  for s in placement.slabs],
+                          "build_s": place_s, "resident_bytes": placement.nbytes},
+            "placed_topk_launches": placed_topk, "candidate_fraction": frac,
+            **{f"prefilter_{k}": int(v) for k, v in totals.items()},
+            "prefiltered_batches_compared": compared, "queries_per_s": rates,
+            "max_abs_err": errs, "compaction": stats,
+            "mask_refreshes": snap.get("placement.mask_refreshes"),
+            "placement_builds": snap.get("placement.builds"), "tombstone_epochs": epochs}
+
+
+def sliced_part(torch, dev, cfg, mapping, corpus, queries) -> dict:
+    """Phase 2i (c): the sliced path on an append-only store of the whole
+    corpus over seven shards of ``cuda:0`` (a C seven does not divide)."""
+    from repro_torch.engine import QueryPlanner, SketchEngine
+    from repro_torch.parallel import make_mesh
+
+    engine = SketchEngine.build(cfg, mapping, corpus, backend="cuda", batch=16384,
+                                planner=QueryPlanner(min_batch=8, max_batch=256))
+    n = engine.store.size
+    mesh = make_mesh((7,), ("data",))
+    padded = 7 * -(-n // 7)
+    single = serve_batches(torch, engine, queries, None)
+    sliced = sharded_batches(torch, engine, mesh, queries, None)
+    err = held_to(torch, engine, queries, None, sliced, single, "sliced on 7 shards vs query")
+    tail = torch.from_numpy(corpus[n - 16 :]).to(dev)
+    _, tail_ids = engine.query_sharded(mesh, "data", tail, 10)
+    if not (tail_ids == torch.arange(n - 16, n, device=dev)[:, None]).any(dim=1).all():
+        fail("a doc of the padded tail shard is missing from its own query's answers")
+    rates = {"single": serve_batches(torch, engine, queries, None)[2],
+             "sliced": sharded_batches(torch, engine, mesh, queries, None)[2]}
+    print(f"phase 2i sliced: {n} docs over 7 shards ({padded} padded rows), answers equal "
+          f"query's (largest difference {err}); warm q/s {rates}")
+    return {"n_docs": n, "shards": 7, "padded_rows": padded, "max_abs_err": err,
+            "queries_per_s": rates}
+
+
+def mixed_device_part(torch, dev, cfg, mapping, corpus, fresh_rows, queries) -> dict:
+    """Phase 2i (d): a mesh of ``cuda:0`` and the CPU at 4,096 docs, the one-card
+    stand-in for copies between devices: each shard's slab on its own device,
+    the answers equal to the card's ``query``."""
+    from repro_torch.engine import SketchEngine
+    from repro_torch.parallel import make_mesh
+
+    engine = SketchEngine.build(cfg, mapping, backend="cuda", mutable=True, seal_rows=1024)
+    engine.add(corpus[:4096], batch=1024)
+    engine.delete(list(range(0, 4096, 37)))
+    engine.update([5, 1500, 3000], fresh_rows[:3])
+    mesh = make_mesh((2,), ("data",), devices=[dev, "cpu"])
+    q = queries[:64]
+    want = engine.query(q, 10)
+    err = 0.0
+    for use_placement in (True, False):
+        got = engine.query_sharded(mesh, "data", q, 10, use_placement=use_placement)
+        if got[0].device != dev:
+            fail(f"the mixed mesh answered on {got[0].device}, not {dev}")
+        err = max(err, held_to(torch, engine, q, None, got, want,
+                               f"mesh (cuda:0, cpu), placement={use_placement}"))
+    p = engine._placement
+    where = [[str(t.device) for t in s.sketches] for s in p.slabs]
+    if any(w != [str(dev), "cpu"] for w in where):
+        fail(f"the mixed mesh's slabs sit on {where}")
+    print(f"phase 2i mixed devices: slabs on {where}, placement {p.assign}; answers equal "
+          f"the card's query (largest difference {err})")
+    return {"n_docs": 4096, "devices": [str(dev), "cpu"], "assign": p.assign,
+            "max_abs_err": err}
+
+
+def sharded_phase(torch, dev, spec, n_bins: int, sync_ref: dict, mut: dict) -> dict:
+    """Phase 2i: multi-device serving on one card. Launch counters are zeroed
+    before and read after; returns the ``{"sharded": ...}`` readings."""
+    from repro_torch import obs
+    from repro_torch.core import BinSketchConfig, make_mapping
+    from repro_torch.hopper import ops
+    from repro_torch.launch import serve as serve_mod
+
+    ops.reset_launches()
+    readings = {"serve": sharded_serve_part(torch, dev, spec, n_bins, sync_ref, mut)}
+    queries = readings["serve"].pop("queries")
+    torch.cuda.empty_cache()
+    corpus, lens = serve_mod.generate_corpus(spec, seed=0)  # memoised: serve's draws
+    fresh_rows, _ = serve_mod.generate_corpus(spec, seed=1)
+    cfg = BinSketchConfig.from_sparsity(spec.d, int(lens.max()), 0.05)
+    if cfg.n_bins != n_bins:
+        fail(f"phase 2i: N={cfg.n_bins}, not phase 2's {n_bins}")
+    mapping = make_mapping(cfg, seed=0, device=dev)  # serve's draw
+    try:
+        readings["many_segments"] = many_segment_part(torch, dev, cfg, mapping, corpus,
+                                                      fresh_rows, queries)
+    finally:
+        obs.disable()
+    torch.cuda.empty_cache()
+    readings["sliced_append_only"] = sliced_part(torch, dev, cfg, mapping, corpus, queries)
+    torch.cuda.empty_cache()
+    readings["mixed_devices"] = mixed_device_part(torch, dev, cfg, mapping, corpus, fresh_rows,
+                                                  queries)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    print(f"phase 2i launches: {launches}")
+    for name in ("build_sketch", "sketch_topk", "rebucket", "band_hash"):
+        if launches[name] < 1:
+            fail(f"kernel {name} never launched in phase 2i")
+    readings["launches"] = launches
+    return readings
+
+
 DEDUP_PLANTED = 64  # planted 0.95-Jaccard pairs appended to the corpus (phase 2h)
 DEDUP_CPU_ROWS = 4096  # rows of the card-against-CPU dedup check
 BASELINE_ROWS = 16_384  # rows each baseline sketches on the card
@@ -1975,6 +2415,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_done("2e")
 
+
     # ----------------------------------- baselines and near-duplicates (2h)
     near_dup = near_duplicates_phase(torch, dev, out["corpus"], out["n_bins"], card)
     torch.cuda.empty_cache()
@@ -2097,10 +2538,18 @@ def main(argv=None) -> int:
           f"{rate:.6e}/s, their library_ms torch._int_mm (counts only)")
     phase_done("3")
 
-    # ---------------------------------- operations plane (phase 2f, run last:
-    # torch.profiler loses kernels late in a long run, so phase 3 times first)
+    # ------------------------------------ multi-device serving (phase 2i,
+    # after phase 3: the timings come first, as for 2f)
     del corpus, fills, qs, qf, bins
     torch.cuda.empty_cache()
+    sharded = sharded_phase(torch, dev, spec, out["n_bins"], sync_ref, mut)
+    for r in rows:  # each kernel's launches on phase 2i's path too
+        r["sharded_launches"] = sharded["launches"][r["name"]]
+    torch.cuda.empty_cache()
+    phase_done("2i")
+
+    # ---------------------------------- operations plane (phase 2f, run last:
+    # torch.profiler loses kernels late in a long run, so phase 3 times first)
     threads_before = set(threading.enumerate())
     ops_plane = ops_plane_phase(torch, dev, spec, out["n_bins"], sync_ref)
     ops_plane["fault_free"] = "phases 2, 2b, 2c, 2d, 2e: no degraded component, no failed job"
@@ -2127,6 +2576,7 @@ def main(argv=None) -> int:
     print(json.dumps({"mutable": mut}))
     print(json.dumps({"prefilter": pf}))
     print(json.dumps({"hash_mode": hm}))
+    print(json.dumps({"sharded": sharded}))
     print(json.dumps({"near_duplicates": near_dup}))
     print(json.dumps({"ops_plane": ops_plane}))
     print(json.dumps({"autopilot": autopilot}))

@@ -9,14 +9,16 @@
 | BandPolicy, BandIndex | banding.py | the banded LSH prefilter's knobs and per-segment bucket index |
 | Backend registry | backends.py | reference / cuda behind one name; register_backend adds more |
 | QueryPlanner | planner.py | ragged batches -> bounded set of padded shapes |
-| SketchEngine | engine.py | build + add + lifecycle verbs + score_all + mixed-width, prefiltered query + health() + enable_metrics() / metrics() |
+| SegmentPlacer, SegmentPlacement, WidthSlab | placement.py | whole sealed segments placed on mesh shards, one id-ascending slab per shard and width, lazily refreshed validity masks |
+| SketchEngine, shard_topk | engine.py | build + add + lifecycle verbs + score_all + mixed-width, prefiltered query + query_sharded (placed or sliced) + health() + enable_metrics() / metrics() |
 """
 
 from .backends import (Backend, CudaBackend, ReferenceBackend, available_backends, get_backend,
                        register_backend)
 from .banding import BandIndex, BandPolicy
-from .engine import SketchEngine, merge_segment_topk
+from .engine import SketchEngine, merge_segment_topk, shard_topk
 from .lifecycle import ControllerPolicy, LifecycleController
+from .placement import SegmentPlacement, SegmentPlacer, WidthSlab
 from .planner import QueryChunk, QueryPlanner
 from .segments import DistillPolicy, SealedSegment, SegmentedStore
 from .store import SegmentView, SketchStore
@@ -36,14 +38,18 @@ __all__ = [
     "QueryPlanner",
     "ReferenceBackend",
     "SealedSegment",
+    "SegmentPlacement",
+    "SegmentPlacer",
     "SegmentView",
     "SegmentedStore",
     "SketchEngine",
     "SketchStore",
     "SupervisedJob",
     "SupervisionPolicy",
+    "WidthSlab",
     "available_backends",
     "get_backend",
     "merge_segment_topk",
     "register_backend",
+    "shard_topk",
 ]

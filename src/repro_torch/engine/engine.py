@@ -41,32 +41,49 @@ registry (:meth:`SketchEngine.enable_metrics`), a sampled query records a
 ``kernel_score`` and ``merge`` (timed with CUDA events on the card), and
 every scored segment and the head count a hit on the host.
 :meth:`SketchEngine.metrics` composes it all into one JSON-safe snapshot.
-Placement of the JAX engine comes in a later slice.
+
+``query_sharded`` serves over a :class:`~repro_torch.parallel.DeviceMesh`
+from this one process. On a :class:`SegmentedStore` the **segment is the
+shard unit**: a :class:`~repro_torch.engine.placement.SegmentPlacer` puts
+whole sealed segments on shards (balanced by live rows), each shard's rows
+sit in one id-ascending slab per width on its device, built once per layout,
+and the head is scored once, off the mesh. Per query the batch's sketches are
+copied to each shard device once per width, every shard's streaming top-k is
+launched before anything waits, and the (Q, k) partials are gathered onto
+``mesh.devices[0]`` and merged under the one (score desc, id asc) order. A
+failed placement build or mask refresh degrades the call to the **sliced
+path** (every segment cut into equal row ranges across the shards, the
+reference's baseline and the only path of an append-only store), unless a
+kernel or the card failed. After a sharded query, a background compaction
+merges each shard's resident segments apart (device-local groups).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import obs
 from ..core import binsketch
+from ..hopper import ref
 from ..hopper.build import is_device_fault
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
+from ..parallel.sharding import DeviceMesh, all_gather
 from . import backends as backends_mod
 from .backends import Backend
 from .banding import BandPolicy
+from .placement import SegmentPlacement, SegmentPlacer, WidthSlab
 from .planner import QueryPlanner
 from .segments import DistillPolicy, SealedSegment, SegmentedStore
 from .store import SegmentView, SketchStore, as_index_tensor
 from .supervision import JobSupervisor
 
-__all__ = ["SketchEngine", "merge_segment_topk"]
+__all__ = ["SketchEngine", "merge_segment_topk", "shard_topk"]
 
 
 def merge_segment_topk(parts_s, parts_i, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -87,6 +104,65 @@ def merge_segment_topk(parts_s, parts_i, k: int) -> Tuple[torch.Tensor, torch.Te
     return sc, torch.where(torch.isneginf(sc), torch.full_like(ids, -1), ids)
 
 
+def _shard_partials(qs: torch.Tensor, cand: Sequence[torch.Tensor], n_bins: int, measure: str,
+                    k: int, mesh: DeviceMesh, backend: Backend,
+                    cand_fills: Optional[Sequence[torch.Tensor]] = None,
+                    cand_ids: Optional[Sequence[torch.Tensor]] = None,
+                    cand_valid: Optional[Sequence[Optional[torch.Tensor]]] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every shard's (Q, k) top-k, gathered shard-major onto
+    ``mesh.devices[0]`` as (Q, k·shards) scores and global ids.
+
+    The query batch is copied to each distinct shard device once; each
+    shard's ``Backend.topk`` is launched in turn and nothing waits inside the
+    loop, so shards on separate cards overlap. Local rows map to
+    ``cand_ids[d]`` (default: the shard's offset plus the local row); masked
+    rows never surface, and empty slots hold -inf / -1."""
+    q_on = {}
+    parts_s, parts_i = [], []
+    lo = 0
+    for d, dev in enumerate(mesh.devices):
+        q = q_on.get(dev)
+        if q is None:
+            q = q_on[dev] = qs.to(dev)
+        sc, ix = backend.topk(q, cand[d], n_bins, measure, k,
+                              corpus_fills=None if cand_fills is None else cand_fills[d],
+                              corpus_valid=None if cand_valid is None else cand_valid[d])
+        if cand_ids is None:
+            gids = torch.where(ix >= 0, ix + lo, ix)
+        else:  # -1 slots index row 0 and are masked back to -1
+            gids = torch.where(ix >= 0, cand_ids[d][ix.clamp_min(0).long()], ix)
+        lo += cand[d].shape[0]
+        parts_s.append(sc)
+        parts_i.append(gids.to(torch.int32))
+    dev0 = mesh.devices[0]
+    return all_gather(parts_s, dev0), all_gather(parts_i, dev0)
+
+
+def shard_topk(qs: torch.Tensor, cand: Sequence[torch.Tensor], n_bins: int, measure: str,
+               k: int, mesh: DeviceMesh, *, backend: Optional[Backend] = None,
+               cand_fills: Optional[Sequence[torch.Tensor]] = None,
+               cand_ids: Optional[Sequence[torch.Tensor]] = None,
+               cand_valid: Optional[Sequence[Optional[torch.Tensor]]] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-shard streaming top-k, then the O(k·shards) gather and merge.
+
+    The counterpart of the reference's ``shard_topk``, which runs inside
+    ``shard_map``: here ``cand`` is the sequence of shard slices in mesh
+    order, ``cand[d]`` (C_loc, W) on ``mesh.devices[d]``, and ``qs`` (Q, W)
+    is copied to each shard device. ``cand_fills``, ``cand_ids`` (global doc
+    ids; default: the shard's row offset plus the local row) and
+    ``cand_valid`` (pad rows masked out; an entry may be None) are per-shard
+    sequences alike. Each local pass goes through ``Backend.topk``, so no
+    shard stores its (Q, C_loc) score matrix; the merge on
+    ``mesh.devices[0]`` keeps the lower shard-major position among ties, as
+    ``jax.lax.top_k`` does. Returns (scores (Q, k), ids (Q, k) int32)."""
+    be = backend if backend is not None else backends_mod.ReferenceBackend()
+    sc_all, ids_all = _shard_partials(qs, cand, n_bins, measure, k, mesh, be, cand_fills,
+                                      cand_ids, cand_valid)
+    return ref.select_topk(sc_all, ids_all, k)
+
+
 @dataclasses.dataclass
 class SketchEngine:
     """Build + serve over a :class:`SketchStore` through one backend."""
@@ -95,9 +171,14 @@ class SketchEngine:
     backend: Backend
     measure: str = "jaccard"
     planner: QueryPlanner = dataclasses.field(default_factory=QueryPlanner)
+    placer: SegmentPlacer = dataclasses.field(default_factory=SegmentPlacer)
     # the injected clock: queries with no explicit ``now`` resolve TTL against
     # it (else the store's), and metrics and traces stamp their times with it
     clock: Optional[Callable[[], float]] = None
+    # the placement of the last placed ``query_sharded``, rebuilt when the
+    # sealed-segment set or the mesh changes (see :meth:`_ensure_placement`)
+    _placement: Optional[SegmentPlacement] = dataclasses.field(default=None, init=False,
+                                                               repr=False)
     # the last prefiltered query's candidate accounting (rows of indexed
     # segments, candidate rows, and the segments scanned banded, through the
     # escape hatch, or unindexed); None until a prefiltered query runs
@@ -248,6 +329,18 @@ class SketchEngine:
         if st.head.size:
             st.head_hits += 1
 
+    def _count_slab_hits(self, n_bins: int) -> None:
+        """One hit for every non-empty sealed segment of width ``n_bins``:
+        the placed path scores a width slab whole, never a single segment of
+        it (the replicated head is counted once, by the caller)."""
+        st = self.store
+        if not isinstance(st, SegmentedStore):
+            return
+        base = self.cfg.n_bins
+        for seg in st.sealed:
+            if seg.n_rows and (seg.n_bins if seg.n_bins is not None else base) == n_bins:
+                seg.hits += 1
+
     @property
     def cfg(self) -> binsketch.BinSketchConfig:
         return self.store.cfg
@@ -301,11 +394,21 @@ class SketchEngine:
         and return None; queries keep serving the old segments and swap the
         result in the moment it is ready (or call :meth:`wait_compaction` for
         the stats). Either way, fresh band indexes are hashed through this
-        backend."""
+        backend. While a placement is live (a placed ``query_sharded`` ran on
+        the current layout), the background merge is **device-local**: one
+        group per shard over exactly its resident segments, so each merged
+        segment lands back on its shard at the next placement."""
         store = self._mutable_store()
         if not background:
             return store.compact(backend=self.backend)
-        store.compact_async(backend=self.backend, _hold=_hold)
+        # adopt a pending job *before* reading the placement: its swap
+        # renumbers the sealed list, and groups read earlier would be stale
+        store.wait_compaction()
+        groups = None
+        p = self._placement
+        if p is not None and p.layout_epoch == store._layout_epoch:
+            groups = [g for g in p.assign if g]
+        store.compact_async(groups=groups, backend=self.backend, _hold=_hold)
         return None
 
     def poll_compaction(self) -> bool:
@@ -343,13 +446,16 @@ class SketchEngine:
         return started
 
     # ----------------------------------------------------------------- query
+    def _sketch_queries(self, query_idx: torch.Tensor) -> torch.Tensor:
+        return self.backend.sketch(self.cfg, self.store.mapping, query_idx)
+
     def _padded_query_sketches(self, query_idx: torch.Tensor, padded: int) -> torch.Tensor:
         q = query_idx.shape[0]
         if padded > q:
             pad = torch.full((padded - q, query_idx.shape[1]), -1, dtype=query_idx.dtype,
                              device=query_idx.device)
             query_idx = torch.cat([query_idx, pad], dim=0)
-        return self.backend.sketch(self.cfg, self.store.mapping, query_idx)
+        return self._sketch_queries(query_idx)
 
     def score_all(self, query_idx) -> torch.Tensor:
         """(Q, P) padded query rows -> full (Q, C) similarity matrix.
@@ -652,3 +758,304 @@ class SketchEngine:
             return torch.cat(out_s, dim=0), torch.cat(out_i, dim=0)
         finally:
             obs_trace.finish(tr)
+
+    # --------------------------------------------------------------- sharded
+    def query_sharded(self, mesh: DeviceMesh, axis: str, query_idx, k: int, *,
+                      now: Optional[float] = None, use_placement: bool = True,
+                      prefilter: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Candidate-sharded retrieval over ``mesh``: each shard's top-k, then
+        the O(k·shards) merge; answers on ``mesh.devices[0]``.
+
+        On a :class:`SegmentedStore` the segment is the shard unit: whole
+        sealed segments are placed on shards (balanced by live rows, resident
+        across queries), the head is scored once, and each shard streams only
+        its resident rows; the partials merge under the global lower-id
+        tie-break, so the answers are :meth:`query`'s. ``use_placement=False``
+        forces the sliced path (every segment cut across the shards per
+        query, the benchmark baseline). An append-only :class:`SketchStore`
+        is always sliced; pad rows of a C the shard count does not divide
+        score -inf / id -1. A placement that fails to build or refresh its
+        mask is recorded as the ``placement`` degraded mode and the call is
+        served sliced, with the same answers; a fault of a kernel or the card
+        propagates.
+
+        ``prefilter`` as in :meth:`query`: on the placed path each shard
+        gathers and scores only the candidate slots resident in its slab; the
+        bucket lookup runs once per segment on the host, and candidates
+        route to their shard through the placement's row-to-slot map."""
+        query_idx = as_index_tensor(query_idx, self.device)
+        dev0 = mesh.devices[0]
+        n_q = int(query_idx.shape[0])
+        if n_q == 0:
+            return (torch.zeros((0, k), dtype=torch.float32, device=dev0),
+                    torch.full((0, k), -1, dtype=torch.int32, device=dev0))
+        now = self._auto_now(now)
+        obs_metrics.inc("query.calls")
+        obs_metrics.inc("query.rows", n_q)
+        tr = obs_trace.start("query_sharded", n_q, k, self.device)
+        try:
+            if k > self.store.size:
+                obs_metrics.inc("query.k_overflow")
+                if tr is not None:
+                    tr.k_overflow = True
+            if isinstance(self.store, SegmentedStore):
+                self.store.poll_compaction()
+                if use_placement:
+                    pf = self._resolve_prefilter(prefilter)  # misuse raises here
+                    try:
+                        sc, ix = self._query_placed(mesh, axis, query_idx, k, now=now,
+                                                    prefilter=pf, tr=tr)
+                        return sc.to(dev0), ix.to(dev0)
+                    except Exception as e:
+                        # placement (its build or mask refresh) is an
+                        # accelerator: drop it and serve this call sliced,
+                        # the same answers; a kernel or the card failing is
+                        # not such a fault
+                        if is_device_fault(e):
+                            raise
+                        self.supervisor.record_degraded("placement", f"{e}")
+                        if tr is not None:
+                            tr.note_degraded("placement")
+                        self._placement = None
+            views = self.store.segment_views(now=now)
+            t0 = tr.begin() if tr is not None else None
+            qs = self._sketch_queries(query_idx)
+            if tr is not None:
+                tr.end("rebucket", t0)
+            if not views:
+                return (torch.full((n_q, k), -math.inf, device=dev0),
+                        torch.full((n_q, k), -1, dtype=torch.int32, device=dev0))
+            self._count_view_hits()
+            cache: dict = {}
+            t0 = tr.begin() if tr is not None else None
+            parts = [self._sharded_view_topk(mesh, axis, qs, v, k, width_cache=cache)
+                     for v in views]
+            if tr is not None:
+                tr.end("kernel_score", t0)
+                for v in views:
+                    tr.note_width(v.n_bins if v.n_bins is not None else self.cfg.n_bins)
+            if len(parts) == 1:
+                return parts[0]
+            t0 = tr.begin() if tr is not None else None
+            got = merge_segment_topk([p[0] for p in parts], [p[1] for p in parts], k)
+            if tr is not None:
+                tr.end("merge", t0)
+            return got
+        finally:
+            obs_trace.finish(tr)
+
+    def _ensure_placement(self, mesh: DeviceMesh, axis: str) -> SegmentPlacement:
+        """The current placement, rebuilt only when the sealed-segment set
+        changed (seal, compaction, a background swap) or the mesh did; a
+        tombstone flip rebuilds only a validity mask, never a slab."""
+        store = self.store
+        p = self._placement
+        if (p is None or p.mesh != mesh or p.axis != axis
+                or p.layout_epoch != store._layout_epoch):
+            p = self._placement = self.placer.place(store, mesh, axis)
+        return p
+
+    def _slab_candidates(self, slab: WidthSlab, qkeys: np.ndarray, now: Optional[float],
+                         stats: dict, tr=None) -> Optional[np.ndarray]:
+        """Slot candidates of one width slab for the batch (ascending, live
+        only), or None when a resident indexed segment trips the escape hatch:
+        the whole slab then takes the exhaustive pass (a per-segment fallback
+        would stream the whole slab anyway). An unindexed segment (under
+        ``min_rows``) adds all its live rows, keeping one pass per slab.
+        Candidates are filtered on the host against the tombstone and TTL
+        predicate, so the pass needs no validity mask beyond its pads."""
+        store: SegmentedStore = self.store
+        base = self.cfg.n_bins
+        segs = [(i, s) for i, s in enumerate(store.sealed)
+                if s.n_rows > 0 and (s.n_bins if s.n_bins is not None else base) == slab.n_bins]
+        pend = []  # (seg_i, seg, candidate rows); stats commit only without a hatch
+        seg_rows = cand_rows = banded = unindexed = 0
+        for seg_i, seg in segs:
+            if seg.band_index is None:
+                cand = np.nonzero(seg.valid)[0].astype(np.int64)
+                if store.ttl is not None and now is not None:
+                    cand = cand[seg.born[cand] + store.ttl > now]
+                unindexed += 1
+            else:
+                cand = self._segment_candidates(seg, qkeys, now, tr)
+                if cand is None:  # the escape hatch: the whole slab goes exhaustive
+                    for s_i, s in segs:
+                        if s.band_index is not None:
+                            stats["seg_rows"] += s.n_rows
+                            stats["cand_rows"] += s.n_rows
+                            stats["exhaustive_segments"] += 1
+                        else:
+                            stats["unindexed_segments"] += 1
+                        if tr is not None:
+                            tr.note_segment(f"seg{s_i}", s.n_rows, s.n_rows)
+                    return None
+                seg_rows += seg.n_rows
+                cand_rows += len(cand)
+                banded += 1
+            if tr is not None:
+                tr.note_segment(f"seg{seg_i}", seg.n_rows, len(cand))
+            pend.append((seg_i, seg, cand))
+        stats["seg_rows"] += seg_rows
+        stats["cand_rows"] += cand_rows
+        stats["banded_segments"] += banded
+        stats["unindexed_segments"] += unindexed
+        slots = []
+        for seg_i, seg, cand in pend:
+            if len(cand):
+                s = slab.row_slots(seg_i, seg.n_rows)[cand]
+                slots.append(s[s >= 0])
+        if not slots:
+            return np.zeros((0,), np.int64)
+        # slots of distinct segments are disjoint; ascending slots keep each
+        # shard's gather id-ascending (the slabs are id-sorted)
+        return np.sort(np.concatenate(slots))
+
+    def _prefiltered_slab_topk(self, q_w: torch.Tensor, slab: WidthSlab, slots: np.ndarray,
+                               k: int, tr=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One width slab's gathered (Q, k·shards) partial over ``slots``
+        only: each shard gathers the candidate slots resident in its own slab
+        (O(|local candidates|) rows streamed, no corpus bytes moved), padded
+        to a planner bucket. The host split and every upload happen before
+        the first launch; per-shard slots ascend, so each gathered sub-slab
+        keeps the slab's id-ascending tie order."""
+        t0 = tr.begin() if tr is not None else None
+        n_dev, n_local = len(slab.mesh.devices), slab.n_local
+        shard_of, loc = slots // n_local, slots % n_local
+        counts = np.bincount(shard_of, minlength=n_dev)
+        l_c = self.planner.candidate_bucket(int(counts.max()), n_local)
+        idx = np.zeros((n_dev, l_c), np.int64)
+        msk = np.zeros((n_dev, l_c), np.int32)
+        for d in range(n_dev):
+            ld = loc[shard_of == d]  # ascending: the slots are sorted
+            idx[d, : len(ld)] = ld
+            msk[d, : len(ld)] = 1
+        sub, fills, ids, valid = [], [], [], []
+        for d, dev in enumerate(slab.mesh.devices):
+            rows = torch.from_numpy(idx[d]).to(dev)
+            sub.append(slab.sketches[d].index_select(0, rows))
+            fills.append(slab.fills[d].index_select(0, rows))
+            ids.append(slab.ids[d].index_select(0, rows))
+            valid.append(torch.from_numpy(msk[d]).to(dev))
+        if tr is not None:
+            tr.end("candidate_gather", t0)
+            t0 = tr.begin()
+        got = _shard_partials(q_w, sub, slab.n_bins, self.measure, k, slab.mesh, self.backend,
+                              fills, ids, valid)
+        if tr is not None:
+            tr.end("kernel_score", t0)
+        return got
+
+    def _query_placed(self, mesh: DeviceMesh, axis: str, query_idx: torch.Tensor, k: int, *,
+                      now: Optional[float] = None, prefilter: bool = False, tr=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The segment-placed body of :meth:`query_sharded`.
+
+        One pass per resident width (base and every distilled tier): each
+        shard streams the top-k over its width slab against the batch folded
+        to that width, and the per-shard (Q, k) partials are gathered onto
+        ``mesh.devices[0]``. The head partial (scored once) and every width
+        partial then merge under the global (score desc, id asc) order.
+
+        Exact, scores and ids: each shard's width slab is sorted by global
+        id, so ``Backend.topk``'s positional tie-break is the id tie-break
+        there, and among ties a slab keeps exactly its lowest ids; the global
+        top-k holds at most k docs of any one slab, so the union of the
+        partials (and the head's) always contains it. With ``prefilter`` the
+        shape is the same, but each pass gathers only the candidate slots of
+        the batch's colliding buckets (:meth:`_slab_candidates`)."""
+        store: SegmentedStore = self.store
+        placement = self._ensure_placement(mesh, axis)
+        t0 = tr.begin() if tr is not None else None
+        qs = self._sketch_queries(query_idx)
+        if tr is not None:
+            tr.end("rebucket", t0)
+        hv = store.head_view(now)
+        if not placement.slabs:  # nothing sealed: the head is the corpus
+            if hv is not None:
+                store.head_hits += 1
+            return self._views_topk(qs, [hv] if hv is not None else [], k, tr)
+        cache: dict = {}
+        qkeys_cache: dict = {}
+        stats = self._fresh_prefilter_stats() if prefilter else None
+        parts_s, parts_i = [], []
+        for slab in placement.slabs:
+            q_w = self._rebucket_queries(qs, slab.n_bins, cache)
+            if tr is not None:
+                tr.note_width(slab.n_bins)
+            if prefilter:
+                t0 = tr.begin() if tr is not None else None
+                qkeys = self._query_band_keys(qs, slab.n_bins, qs.shape[0], cache, qkeys_cache)
+                slots = self._slab_candidates(slab, qkeys, now, stats, tr)
+                if tr is not None:
+                    tr.end("band_lookup", t0)
+                if slots is not None:
+                    if len(slots) == 0:
+                        continue
+                    self._count_slab_hits(slab.n_bins)
+                    sc_all, ids_all = self._prefiltered_slab_topk(q_w, slab, slots, k, tr)
+                    parts_s.append(sc_all)
+                    parts_i.append(ids_all)
+                    continue
+            self._count_slab_hits(slab.n_bins)
+            valid = slab.valid_mask(store, now=now)
+            t0 = tr.begin() if tr is not None else None
+            sc_all, ids_all = _shard_partials(q_w, slab.sketches, slab.n_bins, self.measure, k,
+                                              mesh, self.backend, slab.fills, slab.ids, valid)
+            if tr is not None:
+                tr.end("kernel_score", t0)
+            parts_s.append(sc_all)
+            parts_i.append(ids_all)
+        dev0 = mesh.devices[0]
+        if hv is not None:  # the replicated head: scored once, counted once
+            store.head_hits += 1
+            h_sc, h_ids = self._views_topk(qs, [hv], k, tr)
+            parts_s.append(h_sc.to(dev0))
+            parts_i.append(h_ids.to(dev0))
+        if prefilter:
+            self.last_prefilter_stats = stats
+        if not parts_s:  # the prefilter skipped every slab and the head is empty
+            return (torch.full((qs.shape[0], k), -math.inf, device=dev0),
+                    torch.full((qs.shape[0], k), -1, dtype=torch.int32, device=dev0))
+        # always merge: the slab partials hold k·shards columns each
+        t0 = tr.begin() if tr is not None else None
+        got = merge_segment_topk(parts_s, parts_i, k)
+        if tr is not None:
+            tr.end("merge", t0)
+        return got
+
+    def _sharded_view_topk(self, mesh: DeviceMesh, axis: str, qs: torch.Tensor,
+                           view: SegmentView, k: int, *, width_cache: Optional[dict] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One view cut into ``ceil(C / shards)`` rows a shard, shard ``d``'s
+        rows on ``mesh.devices[d]``; the tail shard's missing rows are zero
+        pads masked out (the reference pads C to a multiple of the shard
+        count), so every doc of a C the shard count does not divide stays
+        retrievable. A shard already on the view's device reads a view of its
+        rows, with no copy."""
+        c = int(view.sketches.shape[0])
+        shards = int(mesh.shape[axis])
+        n_local = -(-c // shards)
+        cand, fills, ids, valid = [], [], [], []
+        for d, dev in enumerate(mesh.devices):
+            lo, hi = min(d * n_local, c), min((d + 1) * n_local, c)
+            sk, fl = view.sketches[lo:hi], view.fills[lo:hi]
+            gid = view.ids[lo:hi] if view.ids is not None else None
+            vm = view.valid[lo:hi] if view.valid is not None else None
+            pad = n_local - (hi - lo)
+            if pad:
+                sk = torch.nn.functional.pad(sk, (0, 0, 0, pad))
+                fl = torch.nn.functional.pad(fl, (0, pad))
+                if gid is not None:
+                    gid = torch.nn.functional.pad(gid.to(torch.int32), (0, pad), value=-1)
+                in_range = (vm.to(torch.int32) if vm is not None
+                            else torch.ones(hi - lo, dtype=torch.int32, device=sk.device))
+                vm = torch.nn.functional.pad(in_range, (0, pad))
+            cand.append(sk.to(dev))
+            fills.append(fl.to(dev))
+            ids.append(gid.to(dev) if gid is not None else None)
+            valid.append(vm.to(dev) if vm is not None else None)
+        n_bins = view.n_bins if view.n_bins is not None else self.cfg.n_bins
+        q_w = self._rebucket_queries(qs, n_bins, width_cache if width_cache is not None else {})
+        return shard_topk(q_w, cand, n_bins, self.measure, k, mesh, backend=self.backend,
+                          cand_fills=fills, cand_ids=None if view.ids is None else ids,
+                          cand_valid=valid)

@@ -448,6 +448,10 @@ class SegmentedStore:
     # a background swap): segment indexes shift then, so per-index state
     # (the lifecycle controller's hits baseline) is valid within one epoch
     _layout_epoch: int = 0
+    # bumps whenever a sealed row's liveness flips (delete, a relocating
+    # update or merge, a background swap): a placement's validity masks are
+    # rebuilt from the host bitmaps when it moved, never the slabs
+    _valid_epoch: int = 0
     _compaction: Optional[_CompactionJob] = dataclasses.field(default=None, repr=False)
     # every background job goes through it: failures are retried or
     # quarantined here and never raised into a query
@@ -697,6 +701,7 @@ class SegmentedStore:
         if head_rows:
             self.head.zero_rows(np.asarray(head_rows, np.int64))
         self._n_live -= len(uniq)
+        self._valid_epoch += 1
         return len(uniq)
 
     def _relocate(self, ids: np.ndarray, locs, sel: np.ndarray) -> None:
@@ -707,6 +712,7 @@ class SegmentedStore:
             self.sealed[seg_i].tombstone(row)
             del self._loc[int(ids[i])]
         self._n_live -= len(sel)
+        self._valid_epoch += 1
 
     def update(self, doc_ids: Sequence[int], idx, *, backend=None, now: float = 0.0) -> None:
         """Replace document contents, keeping their ids. Head docs are
@@ -1238,6 +1244,7 @@ class SegmentedStore:
         new_sealed.extend(s for s in self.sealed if id(s) not in replaced)
         self.sealed = new_sealed
         self._layout_epoch += 1
+        self._valid_epoch += 1
         self._loc = {g: loc for g, loc in self._loc.items() if loc[0] == _HEAD}
         for seg_i in range(len(self.sealed)):
             self._index_segment(seg_i)

@@ -18,8 +18,9 @@ reproducibly, so the tests can prove the survival story:
 The injection points are named (:data:`POINTS`, the reference's set, so a
 plan written for it validates here); a plan naming an unknown point fails at
 construction. In the port they thread through the background compaction and
-distillation workers, checkpoint write and restore, and band-index build and
-lookup; the ``placement.*`` points have no port code yet.
+distillation workers, checkpoint write and restore, band-index build and
+lookup, and the segment placement of ``query_sharded`` (its build and its
+validity-mask refresh).
 
 Usage::
 

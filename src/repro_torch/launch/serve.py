@@ -15,6 +15,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --dataset tiny --device cpu \\
         --autopilot --seal-rows 24 --churn-docs 16 --queries 96 --batch 8 \\
         --mutate-rate 0.2 --probe 64 --autopilot-max-segments 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --dataset tiny --device cpu \\
+        --mutate-rate 0.3 --distill 212,106 --sharded
 
 ``repro.launch.serve`` on the port: generate the corpus, size N by Theorem 1,
 draw the Ψ table, stream the corpus into the store in ``--ingest-batch``
@@ -65,9 +67,16 @@ compact or distill. After the loop the controller settles (up to four more
 ticks, each after the pending job has landed) and ``--autopilot-max-segments``
 gates the sealed-segment count; ``--probe`` then reads the controller's own
 probe. Ticks are numbered on the query clock (one a batch), as the lifecycle
-clock counts ingest batches. All the work is in :func:`serve`; :func:`main`
-only reads the flags (and exits non-zero when the probe's or the segment
-count's gate fails).
+clock counts ingest batches.
+
+``--sharded`` serves every batch through ``SketchEngine.query_sharded`` over
+a mesh of every local device of the engine's device type (every visible card,
+or the one CPU): segment-placed on a mutable store (whole sealed segments
+resident on shards, the head scored once), row-sliced on an append-only one.
+With ``--chaos`` the ``placement.*`` fault points then fire too, and each
+fault degrades its call to the sliced path. All the work is in
+:func:`serve`; :func:`main` only reads the flags (and exits non-zero when the
+probe's or the segment count's gate fails).
 """
 
 from __future__ import annotations
@@ -90,6 +99,7 @@ from ..engine import (BandPolicy, ControllerPolicy, DistillPolicy, JobSupervisor
                       LifecycleController, QueryPlanner, SegmentedStore, SketchEngine,
                       SupervisionPolicy)
 from ..obs.probe import RecallProbe, exact_topk
+from ..parallel.sharding import DeviceMesh, make_mesh
 
 __all__ = ["main", "recall_at", "serve"]
 
@@ -101,9 +111,11 @@ def _sync(device: torch.device) -> None:
 
 def _serve_queries(engine: SketchEngine, q_rows: np.ndarray, topk: int, batch: int,
                    now: Optional[float], maintain: Optional[Callable[[int], None]] = None,
-                   on_batch: Optional[Callable] = None, stats_every: int = 0):
-    """Query ``q_rows`` in batches; returns (scores, ids) as numpy, seconds and
-    the number of batches served while a background job was pending.
+                   on_batch: Optional[Callable] = None, stats_every: int = 0,
+                   mesh: Optional[DeviceMesh] = None):
+    """Query ``q_rows`` in batches (through ``query_sharded`` over ``mesh``
+    when one is given); returns (scores, ids) as numpy, seconds and the
+    number of batches served while a background job was pending.
 
     ``maintain(batch_index)`` runs before each batch (the maintenance
     heartbeat of a server: it launches background jobs and saves);
@@ -117,7 +129,11 @@ def _serve_queries(engine: SketchEngine, q_rows: np.ndarray, topk: int, batch: i
     for bi, s in enumerate(range(0, len(q_rows), batch)):
         if maintain is not None:
             maintain(bi)
-        sc, ids = engine.query(q_rows[s : s + batch], topk, now=now)
+        if mesh is not None:
+            sc, ids = engine.query_sharded(mesh, mesh.axis_names[0], q_rows[s : s + batch],
+                                           topk, now=now)
+        else:
+            sc, ids = engine.query(q_rows[s : s + batch], topk, now=now)
         pending = getattr(engine.store, "job_pending", None)
         pending_batches += pending is not None
         if on_batch is not None:
@@ -125,17 +141,17 @@ def _serve_queries(engine: SketchEngine, q_rows: np.ndarray, topk: int, batch: i
         all_s.append(sc)
         all_i.append(ids)
         if stats_every and (bi + 1) % stats_every == 0:
-            _print_stats(bi)
+            _print_stats(bi, "query_sharded" if mesh is not None else "query")
     ids = torch.cat(all_i).cpu().numpy()  # the copy waits for the device
     seconds = time.perf_counter() - t0
     return torch.cat(all_s).cpu().numpy(), ids, seconds, pending_batches
 
 
-def _print_stats(bi: int) -> None:
-    """One line of the armed registry: calls, rows, query latency p50/p99,
-    mean candidate fraction and degraded counts."""
+def _print_stats(bi: int, path: str = "query") -> None:
+    """One line of the armed registry: calls, rows, the latency p50/p99 of
+    the query ``path`` served, mean candidate fraction and degraded counts."""
     snap = obs.metrics.active().snapshot()
-    qh = snap["histograms"].get("query.query_s", {})
+    qh = snap["histograms"].get(f"query.{path}_s", {})
     cf = snap["histograms"].get("query.candidate_frac", {})
     deg = sum(v for k, v in snap["counters"].items() if k.startswith("degraded."))
     print(f"stats: batch {bi + 1}: calls={snap['counters'].get('query.calls', 0)} "
@@ -147,7 +163,7 @@ def _print_stats(bi: int) -> None:
 def _chaos_plan(rate: float, seed: int) -> "faults.FaultPlan":
     """The reference serve's chaos plan: every maintenance and query-path
     point fires at ``rate``; checkpoint leaves tear rather than raise. The
-    ``placement.*`` points have no code in this package yet and never fire."""
+    ``placement.*`` points fire only on a sharded serve (``--sharded``)."""
     spec = faults.FaultSpec("raise", p=rate)
     return faults.FaultPlan({
         "compact.work": spec, "distill.work": spec, "band.build": spec,
@@ -278,7 +294,7 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
           probe_baseline: Optional[float] = None, probe_tol: float = 0.02,
           autopilot: bool = False, churn_docs: int = 8, autopilot_fanout: int = 4,
           autopilot_distill: Sequence[int] = (), autopilot_budget: Optional[int] = None,
-          autopilot_max_segments: Optional[int] = None) -> dict:
+          autopilot_max_segments: Optional[int] = None, sharded: bool = False) -> dict:
     """Build a store over ``spec``'s corpus (seed 0), optionally mutate and
     distill it, serve ``queries`` surviving docs (seed 1) in batches of
     ``batch``, and check recall@``topk``.
@@ -310,7 +326,9 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
     controller's state, the settled segment count, whether the
     ``autopilot_max_segments`` gate held (``ok``) and each tick's host
     milliseconds; the recall and the probe are then over the catalog as the
-    churn left it."""
+    churn left it. ``sharded`` serves every batch through ``query_sharded``
+    over a mesh of every local device of ``device``'s type; ``out["mesh"]``
+    is that mesh."""
     dev = resolve_device(device)
     idx, lens = generate_corpus(spec, seed=0)
     n = idx.shape[0]
@@ -433,6 +451,15 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
         query_ids = surv_ids[q_pick]
         truth_ids = surv_ids[exact_topk(surv_rows, q_rows, topk, device=dev)]
 
+        mesh = None
+        if sharded:
+            local = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                     if dev.type == "cuda" else [dev])
+            mesh = make_mesh((len(local),), ("data",), devices=local)
+            print(f"sharded serve: {len(local)} device(s)"
+                  + (", segment-placed (resident slabs, head replicated)" if mutable
+                     else ", row-sliced single slab"))
+
         mgr = plan = None
         saves = 0
         if chaos:
@@ -480,7 +507,7 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
                                    probe_interval=4.0 if probe else None))
         if distill:
             sc, ids, t_serve, _ = _serve_queries(engine, q_rows, topk, batch, serve_now,
-                                                 heartbeat, on_batch, stats_every)
+                                                 heartbeat, on_batch, stats_every, mesh)
             recall = recall_at(ids, truth_ids, topk)
             print(f"recall@{topk} vs exact Jaccard over survivors, before distillation: "
                   f"{recall:.3f}")
@@ -502,7 +529,8 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
         if pilot is not None:
             heartbeat = pilot.heartbeat(heartbeat)
         sc, ids, t_serve, pending_batches = _serve_queries(engine, q_rows, topk, batch, serve_now,
-                                                           heartbeat, on_batch, stats_every)
+                                                           heartbeat, on_batch, stats_every,
+                                                           mesh)
         print(f"serve: {n_queries} queries in {t_serve:.2f}s "
               f"({n_queries / t_serve:.0f} q/s, batch={batch})")
         if pilot is not None:
@@ -554,7 +582,7 @@ def serve(spec: DatasetSpec, *, queries: int = 64, topk: int = 10, rho: float = 
                    queries_per_s=n_queries / t_serve, engine=engine, corpus=idx,
                    surv_ids=surv_ids, surv_rows=surv_rows, queries=q_rows,
                    query_ids=query_ids, truth_ids=truth_ids, scores=sc, ids=ids,
-                   serve_now=serve_now)
+                   serve_now=serve_now, mesh=mesh)
         return out
     finally:
         obs.disable()
@@ -631,6 +659,10 @@ def main(argv=None):
                          "half updated); > 0 builds the mutable segmented store")
     ap.add_argument("--seal-rows", type=int, default=None,
                     help="auto-seal the counting head at this many rows (mutable store)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="serve through query_sharded over a mesh of every local device of "
+                         "--device's type: segment-placed on a mutable store (whole segments "
+                         "resident on shards, head replicated), row-sliced on an append-only one")
     ap.add_argument("--ttl", type=float, default=None,
                     help="mutable store: lazy TTL in ingest-batch ticks; docs older than "
                          "this at serve time drop out of results, no sweep")
@@ -709,7 +741,7 @@ def main(argv=None):
                 autopilot_fanout=args.autopilot_fanout,
                 autopilot_distill=widths_of(args.autopilot_distill),
                 autopilot_budget=args.autopilot_budget,
-                autopilot_max_segments=args.autopilot_max_segments)
+                autopilot_max_segments=args.autopilot_max_segments, sharded=args.sharded)
     if args.probe and not out["probe"]["ok"]:
         raise SystemExit("probe recall gate failed (see 'probe:' lines above)")
     if args.autopilot and not out["autopilot"]["ok"]:

@@ -74,7 +74,7 @@ class QueryTrace:
                  "widths", "degraded", "k_overflow", "_t0", "_events", "_pending")
 
     def __init__(self, path: str, n_queries: int, k: int, started_at: float, device=None):
-        self.path = path  # "query"
+        self.path = path  # "query" | "query_sharded"
         self.n_queries = int(n_queries)
         self.k = int(k)
         self.started_at = float(started_at)

@@ -428,3 +428,67 @@ def test_baseline_on_the_card_equals_the_cpu(dev, name):
         else:
             assert g.dtype == w.dtype and torch.equal(g, w)
     assert np.isfinite(on_card[0].float().cpu().numpy()).all()
+
+
+def _topk_equal_up_to_ties(got, want, truth):
+    """Scores within rtol 1e-5 / atol 1e-6 slot for slot; ids equal except
+    where the two ids' scores in ``truth`` (Q, C) tie."""
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    differ = got[1] != want[1]
+    if differ.any():
+        r = differ.nonzero(as_tuple=True)[0]
+        torch.testing.assert_close(truth[r, got[1][differ].long()],
+                                   truth[r, want[1][differ].long()], rtol=1e-5, atol=1e-6)
+
+
+def test_placed_on_four_shards_of_one_card_equals_query(dev):
+    """Whole segments placed on four shards of ``cuda:0``, each slab past the
+    streaming top-k's crossover: the placed answers equal ``query``'s and
+    every shard's pass launched ``sketch_topk``."""
+    from repro_torch.core import BinSketchConfig, make_mapping
+    from repro_torch.engine import SketchEngine
+    from repro_torch.parallel import make_mesh
+
+    cfg = BinSketchConfig(d=4096, n_bins=517)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    docs = torch.randint(0, cfg.d, (40_000, 40), generator=gen, device=dev, dtype=torch.int32)
+    eng = SketchEngine.build(cfg, make_mapping(cfg, seed=0, device=dev), backend="cuda",
+                             mutable=True, seal_rows=10_000)
+    for s in range(0, 40_000, 10_000):  # one sealed segment of 10,000 rows a call
+        eng.add(docs[s : s + 10_000])
+    eng.delete(list(range(0, 40_000, 97)))
+    eng.update([5, 12_345], docs[:2])  # sealed -> head relocations
+    mesh = make_mesh((4,), ("data",))
+    assert mesh.devices == (dev,) * 4
+    q = docs[100:164]
+    want = eng.query(q, 10)
+    before = ops.launches["sketch_topk"]
+    got = eng.query_sharded(mesh, "data", q, 10)
+    assert ops.launches["sketch_topk"] - before == 4
+    assert [len(g) for g in eng._placement.assign] == [1, 1, 1, 1]
+    assert all(t.device == dev for s in eng._placement.slabs for t in s.sketches)
+    _topk_equal_up_to_ties(got, want, eng.score_all(q))
+    assert eng.health()["degraded"] == []
+
+
+def test_sliced_path_on_seven_shards_of_one_card(dev):
+    """An append-only store of C = 70,001 rows, which 7 does not divide, cut
+    across seven shards of ``cuda:0`` (10,001 rows a shard, past the top-k
+    kernel's crossover): the answers equal ``query``'s and the docs of the
+    padded tail shard stay retrievable."""
+    from repro_torch.core import BinSketchConfig, make_mapping
+    from repro_torch.engine import SketchEngine
+    from repro_torch.parallel import make_mesh
+
+    cfg = BinSketchConfig(d=4096, n_bins=517)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    docs = torch.randint(0, cfg.d, (70_001, 40), generator=gen, device=dev, dtype=torch.int32)
+    eng = SketchEngine.build(cfg, make_mapping(cfg, seed=0, device=dev), docs, backend="cuda")
+    mesh = make_mesh((7,), ("data",), devices=[dev])
+    q = torch.cat([docs[:32], docs[-32:]])
+    want = eng.query(q, 10)
+    before = ops.launches["sketch_topk"]
+    got = eng.query_sharded(mesh, "data", q, 10)
+    assert ops.launches["sketch_topk"] - before == 7
+    _topk_equal_up_to_ties(got, want, eng.score_all(q))
+    assert got[1][32:, 0].tolist() == list(range(70_001 - 32, 70_001))

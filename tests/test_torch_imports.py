@@ -56,7 +56,8 @@ def test_port_imports_without_cuda_and_default_raises(monkeypatch):
                 "repro_torch.core.baselines.minhash", "repro_torch.core.baselines.doph",
                 "repro_torch.core.baselines.oddsketch", "repro_torch.core.baselines.simhash",
                 "repro_torch.core.baselines.cbe", "repro_torch.core.categorical",
-                "repro_torch.data.dedup"):
+                "repro_torch.data.dedup", "repro_torch.parallel.sharding",
+                "repro_torch.engine.placement"):
         assert new in names
 
     import repro_torch

@@ -613,7 +613,7 @@ def test_port_workers_own_only_their_snapshots():
     exactly that cell, so it does see the workers)."""
     allow = {("src/repro_torch/checkpoint/manager.py", "BackgroundJob.__init__.run")}
     for rel in ("src/repro_torch/engine/segments.py", "src/repro_torch/engine/supervision.py",
-                "src/repro_torch/engine/lifecycle.py",
+                "src/repro_torch/engine/lifecycle.py", "src/repro_torch/engine/placement.py",
                 "src/repro_torch/checkpoint/manager.py", "src/repro_torch/obs/probe.py",
                 "src/repro_torch/obs/trace.py"):
         assert ownership.check_file(str(REPO / rel), rel, allowlist=allow) == [], rel
